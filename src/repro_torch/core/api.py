@@ -1,0 +1,57 @@
+"""One front door for the port's MalStone drivers.
+
+Counterpart of ``repro/core/api.py:run``. The source is a flat
+:class:`EventLog` (engine ``"oneshot"``) or a MalGen ``SeedInfo`` (engine
+``"oneshot"`` or ``"generated"``: the nodes generate their records in
+place). The other engines of the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.common.types import EventLog, ExchangePlan
+
+ENGINES = ("oneshot", "streaming", "generated", "generated_streaming",
+           "resumable")
+_UNPORTED_ENGINES = {
+    "streaming": "ROADMAP.md Queue 1, item 4",
+    "generated_streaming": "ROADMAP.md Queue 1, item 4",
+    "resumable": "ROADMAP.md Queue 1, item 5",
+}
+
+
+def run(source, num_sites: Optional[int] = None, *, nodes: int,
+        engine: str = "oneshot", plan: Optional[ExchangePlan] = None,
+        cfg=None, device=None, **kwargs):
+    """Run MalStone: route ``source`` x ``engine`` to its driver.
+
+    ``nodes`` stands for the JAX mesh size. A log source needs
+    ``num_sites``; a seed source needs ``cfg`` (and ``records_per_shard``
+    in ``kwargs``), and ``num_sites`` defaults to ``cfg.num_sites``. Other
+    keyword arguments (``statistic``, ``backend``,
+    ``return_shuffle_stats``, ...) pass through. Runs on the card unless
+    ``device="cpu"``.
+    """
+    from repro_torch.core import runner
+
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; have {ENGINES}")
+    if engine in _UNPORTED_ENGINES:
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported yet "
+            f"({_UNPORTED_ENGINES[engine]})")
+    if isinstance(source, EventLog):
+        if num_sites is None:
+            raise ValueError("an EventLog source requires num_sites=")
+        if engine == "generated":
+            raise ValueError(
+                "engine 'generated' regenerates records on the device and "
+                "needs a MalGen SeedInfo source, not an EventLog")
+        return runner.malstone_run(source, num_sites, nodes=nodes,
+                                   plan=plan, device=device, **kwargs)
+    if cfg is None:
+        raise ValueError("a seed source requires cfg= (the MalGenConfig)")
+    return runner.malstone_run_generated(
+        source, cfg, nodes=nodes, num_sites=num_sites, plan=plan,
+        device=device, **kwargs)

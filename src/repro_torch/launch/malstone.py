@@ -1,0 +1,137 @@
+"""MalStone benchmark launcher of the PyTorch port.
+
+    PYTHONPATH=src python -m repro_torch.launch.malstone --nodes 8 \\
+        --records-per-node 1048576 --gen-device
+
+The flags are those of ``repro.launch.malstone`` that the port supports.
+The P nodes are a leading axis of tensors on one device (``--device cuda``,
+the default, or ``cpu`` for the plain PyTorch path). ``--gen-device`` fuses
+MalGen into the run: every node generates its shard in place and the timed
+run includes generation; without it the shards are generated once, before
+the timed runs, and the runs start from the materialized log. On the card
+each run is timed with CUDA events and a synchronize.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+from repro_torch.common.nodes import resolve_device
+from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
+from repro_torch.core import run
+from repro_torch.core.backends import resolve_exchange_impl
+from repro_torch.core.runner import _pad_sites
+from repro_torch.malgen import MalGenConfig, generate_shards_device, make_seed
+
+
+def _timed(fn, device: torch.device):
+    """(result, milliseconds) of one call, ended by a synchronize."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return out, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nodes", type=int, default=1)
+    ap.add_argument("--records-per-node", type=int, default=262_144)
+    ap.add_argument("--sites", type=int, default=10_000)
+    ap.add_argument("--entities", type=int, default=100_000)
+    ap.add_argument("--backend", default="mapreduce", choices=("mapreduce",),
+                    help="the port runs the mapreduce record shuffle")
+    ap.add_argument("--statistic", default="B",
+                    choices=("A", "B", "B-fixed"))
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--capacity-factor", type=float, default=2.0,
+                    help="bucket capacity as a multiple of records/nodes;"
+                         " any value is lossless")
+    ap.add_argument("--max-shuffle-rounds", type=int, default=None,
+                    metavar="R",
+                    help="cap the shuffle rounds (default: the provably"
+                         " sufficient bound); an exhausted cap is an error")
+    ap.add_argument("--exchange-impl", default="auto",
+                    choices=("auto", "sort", "counting"),
+                    help="'counting' orders the packed words with the"
+                         " counting-sort kernels, 'sort' with a stable"
+                         " argsort; 'auto' = counting")
+    ap.add_argument("--histogram-impl", default="kernel",
+                    choices=("segment_sum", "kernel"),
+                    help="'kernel' reduces the shuffled words with the fused"
+                         " unpack+histogram kernel; 'segment_sum' unpacks"
+                         " and uses index_add_")
+    ap.add_argument("--gen-device", action="store_true",
+                    help="generate every node's shard in place inside the"
+                         " timed run")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    if args.runs < 1:
+        ap.error("--runs must be >= 1")
+
+    device = resolve_device(args.device)
+    cfg = MalGenConfig(num_sites=args.sites, num_entities=args.entities)
+    total = args.nodes * args.records_per_node
+    plan = ExchangePlan(impl=args.exchange_impl,
+                        capacity_factor=args.capacity_factor,
+                        max_shuffle_rounds=args.max_shuffle_rounds,
+                        histogram_impl=args.histogram_impl)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device: {kind}")
+
+    seed, ms = _timed(lambda: make_seed(0, cfg, total, device=device),
+                      device)
+    print(f"MalGen seed: {total:,} records ({total * 100 / 1e6:.0f} MB "
+          f"logical) over {args.nodes} nodes, seeded in {ms:.1f} ms "
+          f"(scatter payload {seed.seed_bytes / 1e6:.1f} MB)")
+    kw = dict(nodes=args.nodes, plan=plan, statistic=args.statistic,
+              backend=args.backend, device=device, return_shuffle_stats=True)
+    if args.gen_device:
+        def fn():
+            return run(seed, engine="generated", cfg=cfg,
+                       records_per_shard=args.records_per_node, **kw)
+    else:
+        log, ms = _timed(lambda: generate_shards_device(
+            seed, cfg, args.nodes, args.records_per_node, device=device),
+            device)
+        log = log.map(lambda c: c.reshape(-1))
+        print(f"  generated in {ms:.1f} ms")
+
+        def fn():
+            return run(log, cfg.num_sites, **kw)
+
+    fn()  # warm-up: builds and loads the kernels on first CUDA use
+    samples = []
+    for r in range(args.runs):
+        (result, stats), ms = _timed(fn, device)
+        samples.append(ms)
+        print(f"  run {r + 1}: {ms:.3f} ms "
+              f"({total / (ms / 1e3) / 1e6:.1f}M records/s)", flush=True)
+    mode = "gen-device" if args.gen_device else "one-shot"
+    print(f"MalStone {args.statistic} [{args.backend}, {mode}] median "
+          f"{statistics.median(samples):.3f} ms over {args.runs} runs")
+    impl = resolve_exchange_impl(plan.impl,
+                                 _pad_sites(args.sites, args.nodes),
+                                 WEEKS_PER_YEAR)
+    print(f"  shuffle: packed impl={impl} rounds={stats.rounds} "
+          f"capacity={stats.capacity}/dest sent={int(stats.sent)} "
+          f"deferred={int(stats.residual)} "
+          f"bytes={int(stats.bytes_exchanged):,} "
+          f"overflow={int(stats.overflow)}")
+    print(f"  rho {tuple(result.rho.shape)} mean "
+          f"{float(result.rho.double().mean()):.6f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -17,6 +17,8 @@ import types
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess tests (several minutes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")
 
 
 try:  # pragma: no cover - exercised only when hypothesis exists

@@ -1,0 +1,128 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels
+have no CPU mode). The file imports no JAX, so it runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import malstone_run
+from repro_torch.common.types import ExchangePlan
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.count_scatter import ops as cs
+from repro_torch.kernels.count_scatter import count_scatter_ref
+from repro_torch.kernels.segment_hist import (
+    segment_hist_packed_words,
+    segment_hist_packed_words_plain,
+)
+from repro_torch.malgen import MalGenConfig, generate_shards_device, make_seed
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _case(seed, rows, n, p, device):
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(0, p + 1, size=(rows, n), dtype=np.int32)
+    words = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
+    return (torch.from_numpy(words.view(np.int32)).to(device),
+            torch.from_numpy(dest).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,p", [(1, 100, 4), (3, 5000, 3),
+                                      (8, 70_000, 8), (2, 4096, 16),
+                                      (1, 3000, 1)])
+def test_count_scatter_equals_plain(cuda_device, rows, n, p):
+    w, d = _case(rows * n, rows, n, p, cuda_device)
+    reset_launch_counts()
+    got = cs.count_scatter(w, d, p)
+    counts = launch_counts()
+    assert counts["count_scatter.count"] == 1
+    assert counts["count_scatter.scatter"] == 1
+    for a, b in zip(got, count_scatter_ref(w, d, p)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    counts = cs.count_tiles(d, p + 1)
+    torch.testing.assert_close(counts, cs.count_tiles_plain(d, p + 1),
+                               rtol=0, atol=0)
+    base, _ = cs.tile_bases(counts)
+    torch.testing.assert_close(cs.scatter_tiles(w, d, base),
+                               cs.scatter_tiles_plain(w, d, base),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d0", [0, 8])
+def test_count_scatter_one_destination_is_identity(cuda_device, d0):
+    w, _ = _case(d0, 2, 9000, 8, cuda_device)
+    d = torch.full_like(w, d0)
+    got, _ = cs.count_scatter(w, d, 8)
+    torch.testing.assert_close(got, w, rtol=0, atol=0)
+
+
+def _packed(p, length, s_local, device):
+    g = torch.Generator().manual_seed(p * length)
+    site = torch.randint(0, s_local * p, (p, length), generator=g)
+    week = torch.randint(0, 52, (p, length), generator=g)
+    mark = torch.randint(0, 2, (p, length), generator=g)
+    words = (site << 8) | (week << 2) | (mark << 1) | 1
+    kind = torch.rand((p, length), generator=g)
+    big = (torch.randint(1 << 23, 1 << 24, (p, length), generator=g) << 8) | 1
+    words = torch.where(kind < 0.15, torch.zeros_like(words), words)
+    words = torch.where((kind >= 0.15) & (kind < 0.25), big, words)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,s_local", [(1, 37), (4, 40), (8, 12_500)])
+def test_packed_hist_equals_plain(cuda_device, p, s_local):
+    words = _packed(p, 20_000, s_local, cuda_device)
+    kw = dict(num_sites_local=s_local, num_partitions=p, num_weeks=52)
+    torch.testing.assert_close(segment_hist_packed_words(words, **kw),
+                               segment_hist_packed_words_plain(words, **kw),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_same_seed_gives_the_same_records_on_the_card(cuda_device):
+    """Generation is a pure function of the seed on one device: the seed
+    tables (float32 scans included) and the records repeat exactly."""
+    cfg = MalGenConfig(num_sites=100_000, num_entities=100_000)
+    a = make_seed(4, cfg, 4 * 200_000, device=cuda_device)
+    b = make_seed(4, cfg, 4 * 200_000, device=cuda_device)
+    for f in ("marked_mask", "entity_mark_time", "site_weights",
+              "marked_cdf", "unmarked_cdf"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    la = generate_shards_device(a, cfg, 4, 200_000, device=cuda_device)
+    lb = generate_shards_device(b, cfg, 4, 200_000, device=cuda_device)
+    for x, y in zip(la, lb):
+        if x is not None:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_slice_on_card_equals_cpu(cuda_device):
+    cfg = MalGenConfig(num_sites=1000, num_entities=5000)
+    seed = make_seed(2, cfg, 4 * 50_000, device=cuda_device)
+    log = generate_shards_device(seed, cfg, 4, 50_000,
+                                 device=cuda_device).map(
+        lambda c: c.reshape(-1))
+    plan = ExchangePlan(capacity_factor=0.5, histogram_impl="kernel")
+    got, gs = malstone_run(log, 1000, nodes=4, plan=plan, device=cuda_device,
+                           return_shuffle_stats=True)
+    want, ws = malstone_run(log.to("cpu"), 1000, nodes=4, plan=plan,
+                            device="cpu", return_shuffle_stats=True)
+    torch.testing.assert_close(got.total.cpu(), want.total, rtol=0, atol=0)
+    torch.testing.assert_close(got.rho.cpu().view(torch.int32),
+                               want.rho.view(torch.int32), rtol=0, atol=0)
+    assert [int(x) for x in gs] == [int(x) for x in ws]
