@@ -6,8 +6,9 @@
 1. Prints the card, builds the CUDA kernels from
    ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) and prints the
    build time and the ptxas report.
-2. Holds each kernel (K1 count, K2 stable scatter, K3 fused word reducer)
-   against its plain PyTorch version on the card, exactly, on edge cases.
+2. Holds each kernel (K1 count, K2 stable scatter, K3 fused word reducer,
+   K4 column histogram) against its plain PyTorch version on the card,
+   exactly, on edge cases.
 3. Drives the port's main path once through ``repro_torch.core.run``:
    MalStone B over MalGen records generated on the card (``MalGenConfig()``
    defaults: 100,000 sites, 1,000,000 entities, 52 weeks), 8 nodes x 2^23
@@ -19,7 +20,16 @@
 4. Times each kernel at the main path's shapes against its plain version,
    one library call computing the same function (a yardstick the port
    never calls) and its byte bound at 3.35 TB/s, after checking it equal.
-5. At 8 x 2^20 records, the card's result equals the port's own CPU run of
+5. Drives the other backends at the same width, each with the launch
+   counts set to 0 just before it and read just after: ``streams``,
+   ``sphere`` and ``mapreduce_combiner`` over the same generated records,
+   and ``mapreduce`` with the columns exchange, ``partitioned=True``, over
+   the same shards as a log. Histograms and the rho bits of A, B and
+   B-fixed equal the counting path's; the columns exchange's shuffle stats
+   equal its (``bytes_exchanged`` at 17 bytes a slot). Prints each
+   backend's stage times, records/s, peak memory and profile, then times
+   K4 at these shapes as in 4.
+6. At 8 x 2^20 records, the card's result equals the port's own CPU run of
    the same log (histogram, rho bits, every ShuffleStats field).
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
@@ -59,7 +69,14 @@ KERNEL_INFO = {
     "segment_hist.packed": (
         "src/repro_torch/kernels/csrc/segment_hist_packed.cu",
         "src/repro/kernels/segment_hist/segment_hist.py:87"),
+    "segment_hist": (
+        "src/repro_torch/kernels/csrc/segment_hist.cu",
+        "src/repro/kernels/segment_hist/segment_hist.py:66"),
 }
+# the kernels of the counting main path (phase 3)
+MAIN_KERNELS = ("count_scatter.count", "count_scatter.scatter",
+                "segment_hist.packed")
+STATISTICS = ("A", "B-fixed", "B")     # B last: its run is the one read
 
 
 class CheckFailed(Exception):
@@ -205,8 +222,38 @@ def kernel_edge_cases(device) -> None:
           sh.segment_hist_packed_words_plain(words, **kw))
     check(int(hist.sum()) == 2 * int((site % p == torch.arange(p)[:, None])
                                      .sum()), "bit-31 sites were dropped")
+    k4 = k4_edge_cases(g, device)
     log("kernel", f"K1/K2 bit-equal to plain on {len(cases) * 4} edge "
-                  f"cases, K3 on 4")
+                  f"cases, K3 on 4, K4 on {k4}")
+
+
+def k4_edge_cases(g, device) -> int:
+    """K4 on invalid rows, sites below 0 and at num_sites or above, weeks
+    out of range, marks in {-1, 0, 1, 2}, every record on one site,
+    record counts that are not a multiple of the block and site offsets.
+    Returns the number of cases."""
+    from repro_torch.kernels.segment_hist import ops as sh
+
+    cases = [(1, 1, 5, 52, 0), (1, 1000, 37, 52, 0), (3, 70_001, 300, 52, 0),
+             (8, 100_000, 12_500, 52, 0), (2, 257, 10, 65, 17),
+             (4, 5000, 40, 52, -3)]
+    for rows, n, num_sites, num_weeks, offset in cases:
+        site = torch.randint(offset - 3, offset + num_sites + 3, (rows, n),
+                             generator=g, dtype=torch.int32)
+        week = torch.randint(-2, num_weeks + 2, (rows, n), generator=g,
+                             dtype=torch.int32)
+        mark = torch.randint(-1, 3, (rows, n), generator=g, dtype=torch.int32)
+        valid = torch.rand((rows, n), generator=g) < 0.8
+        kw = dict(num_sites=num_sites, num_weeks=num_weeks,
+                  site_offset=offset)
+        for name, st in (("edges", site), ("one site", torch.full_like(
+                site, offset + num_sites - 1))):
+            cols = [c.to(device) for c in (st, week, mark, valid)]
+            exact(f"segment_hist {name} rows={rows} n={n} S={num_sites} "
+                  f"W={num_weeks} offset={offset}",
+                  sh.segment_hist(*cols, **kw),
+                  sh.segment_hist_plain(*cols, **kw))
+    return 2 * len(cases)
 
 
 # ------------------------------------------------------------- phase 3
@@ -223,7 +270,7 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
         shuffle_round_bound,
         static_capacity,
     )
-    from repro_torch.core.plan import resolve_word_histogram_fn
+    from repro_torch.core.plan import resolve_histogram_fns
     from repro_torch.core.runner import _finalize
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.malgen import MalGenConfig, generate_shards_device
@@ -266,8 +313,10 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
     check(1 <= stats.rounds <= 3, f"{stats.rounds} rounds (expected <= 3)")
     check(stats.rounds <= shuffle_round_bound(rps, capacity),
           "rounds exceed the static bound")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the main path")
+    check(launches["segment_hist"] == 0, "K4 ran on the counting path")
 
     # MapReduce must equal the plain site-week histogram of the same log
     log_t = generate_shards_device(seed, cfg, nodes, rps, device=device)
@@ -300,7 +349,7 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
                 f"{total / (med / 1e3):.1f} records/s")
 
     # stages, each timed on its own (the sum runs the path once)
-    word_fn = resolve_word_histogram_fn(plan)
+    _, word_fn = resolve_histogram_fns(plan)
     s_pad = -(-cfg.num_sites // nodes) * nodes
     stage = {}
     box = {}
@@ -332,7 +381,7 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
                 peak_bytes=peak, rounds=stats.rounds, profile=prof)
 
 
-def profile(drive, device) -> dict:
+def profile(drive, device, top: int = 12) -> dict:
     """Device busy time and the top kernels of one main-path run: the sum
     of the device-side (kernel and memcpy/memset) events, against the wall
     time of the run inside the profiler (its start-up excluded)."""
@@ -359,13 +408,28 @@ def profile(drive, device) -> dict:
     busy = sum(r[0] for r in rows)
     log("profile", f"wall {wall_ms:.3f} ms (profiled), device busy "
                    f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}")
-    for ms, count, key in rows[:12]:
+    for ms, count, key in rows[:top]:
         log("profile", f"{ms:10.4f} ms x{count:<3d} {key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
-                top=[(key[:90], ms, count) for ms, count, key in rows[:12]])
+                top=[(key[:90], ms, count) for ms, count, key in rows[:top]])
 
 
 # ------------------------------------------------------------- phase 4
+def kernel_row(name, launches, err, ms, plain_ms, library_ms, bytes_moved,
+               **extra) -> dict:
+    """One kernel's entry of the kernels line; the bound is its bytes
+    (inputs read once, outputs written once) at the card's memory rate."""
+    source, replaces = KERNEL_INFO[name]
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": library_ms,
+           "match": err == 0.0, **extra}
+    log("kernel", json.dumps(row))
+    return row
+
+
 def kernels_at_main_shapes(device, mp: dict) -> list:
     from repro_torch.common.types import (
         WEEKS_PER_YEAR,
@@ -387,15 +451,8 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
     out = []
 
     def entry(name, err, ms, plain_ms, library_ms, bytes_moved):
-        source, replaces = KERNEL_INFO[name]
-        bound = bytes_moved / HBM_BYTES_PER_S * 1e3
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": mp["launches"][name],
-               "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-               "library_ms": library_ms, "match": err == 0.0}
-        log("kernel", json.dumps(row))
-        out.append(row)
+        out.append(kernel_row(name, mp["launches"][name], err, ms, plain_ms,
+                              library_ms, bytes_moved))
 
     # K1: per-tile destination histogram of the main path's destinations
     counts = cs.count_tiles(dest, num_dests)
@@ -457,6 +514,194 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
 
 
 # ------------------------------------------------------------- phase 5
+def other_backends(device, nodes: int, rps: int, runs: int = 3):
+    """Drive streams, sphere and mapreduce_combiner over the main path's
+    generated records, and mapreduce with the columns exchange,
+    partitioned, over the same shards as a log; check each against the
+    counting path and K4's launches; time stages and runs. Returns K4's
+    kernels-line entry."""
+    from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
+    from repro_torch.core import run
+    from repro_torch.core.backends.mapreduce import static_capacity
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.segment_hist import ops as sh
+    from repro_torch.malgen import MalGenConfig, generate_shards_device
+    from repro_torch.malgen import make_seed
+
+    cuda = device.type == "cuda"
+    cfg = MalGenConfig()
+    total, num_sites, weeks = nodes * rps, cfg.num_sites, WEEKS_PER_YEAR
+    s_pad = -(-num_sites // nodes) * nodes
+    capacity = static_capacity(rps, nodes, CAPACITY_FACTOR)
+    seed = make_seed(0, cfg, total, device=device)     # the main path's
+    gen = dict(engine="generated", nodes=nodes, cfg=cfg,
+               records_per_shard=rps, device=device,
+               return_shuffle_stats=True)
+    want = {stat: run(seed, backend="mapreduce", statistic=stat,
+                      plan=ExchangePlan(impl="counting",
+                                        capacity_factor=CAPACITY_FACTOR),
+                      **gen)
+            for stat in STATISTICS}
+    flat = generate_shards_device(seed, cfg, nodes, rps, device=device).map(
+        lambda c: c.reshape(-1))
+    columns = ExchangePlan(impl="columns", capacity_factor=CAPACITY_FACTOR)
+
+    def drive(path, stat):
+        if path == "mapreduce+columns":
+            return run(flat, num_sites, nodes=nodes, backend="mapreduce",
+                       plan=columns, partitioned=True, statistic=stat,
+                       device=device, return_shuffle_stats=True)
+        return run(seed, backend=path, statistic=stat, **gen)
+
+    k4_launches = {}
+    for path in ("streams", "sphere", "mapreduce_combiner",
+                 "mapreduce+columns"):
+        blocks = path == "mapreduce+columns"
+        for stat in STATISTICS:
+            sync(device)
+            base = peak = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+            reset_launch_counts()
+            result, stats = drive(path, stat)
+            sync(device)
+            launches = launch_counts()
+            if cuda:
+                peak = torch.cuda.max_memory_allocated(device)
+            ref, ref_stats = want[stat]
+            for f in ("total", "marked", "rho"):
+                got = getattr(result, f)
+                if blocks:     # [P, s_pad/P, ...] blocks in node order
+                    got = got.reshape(-1, *got.shape[2:])[:num_sites]
+                check(torch.equal(got.view(torch.int32),
+                                  getattr(ref, f).view(torch.int32)),
+                      f"{path} {stat}: {f} differs from the counting path")
+            rounds = 1
+            if blocks:
+                rounds = stats.rounds
+                for f in ("sent", "overflow", "capacity", "rounds",
+                          "residual"):
+                    check(int(getattr(stats, f)) == int(getattr(ref_stats,
+                                                                 f)),
+                          f"columns ShuffleStats.{f} differs from counting")
+                per_node = rounds * nodes * capacity * 17
+                check(int(stats.bytes_exchanged) == (
+                    per_node * nodes + 2**31) % 2**32 - 2**31,
+                    "columns bytes_exchanged != rounds * P * C * 17 summed "
+                    "over the nodes (int32, wrapping as the psum does)")
+            else:
+                check(stats is None, f"{path} returned ShuffleStats")
+            expect = {"segment_hist": rounds, "segment_hist.packed": 0,
+                      "count_scatter.count": rounds if blocks else 0,
+                      "count_scatter.scatter": rounds if blocks else 0}
+            check(launches == expect, f"{path} {stat}: launches "
+                                      f"{launches}, expected {expect}")
+        k4_launches[path] = launches["segment_hist"]
+        samples = [time_ms(lambda: drive(path, "B"), device, iters=1,
+                           warmup=0) for _ in range(runs)]
+        med = statistics.median(samples)
+        stage = backend_stages(path, seed, cfg, flat, nodes, rps, s_pad,
+                               capacity, device)
+        row = dict(run_ms=samples, median_ms=med,
+                   records_per_s=total / (med / 1e3), stage_ms=stage,
+                   peak_bytes=peak, allocated_before_bytes=base,
+                   k4_launches=launches["segment_hist"], rounds=rounds)
+        log("path", f"{path}: " + json.dumps(row))
+        if cuda:
+            profile(lambda: drive(path, "B"), device, top=6)
+    log("path", "streams, sphere, mapreduce_combiner and mapreduce+columns "
+                "equal the counting path (histograms, A/B/B-fixed rho bits, "
+                "columns shuffle stats)")
+
+    # K4 at these shapes: the local combine of the generated records
+    lg = flat.map(lambda c: c.reshape(nodes, -1))
+    cols = (lg.site_id, lg.week(), lg.mark, lg.valid_mask())
+    kw = dict(num_sites=s_pad, num_weeks=weeks)
+    err = exact("K4 main shapes", sh.segment_hist(*cols, **kw),
+                sh.segment_hist_plain(*cols, **kw))
+    node = torch.arange(nodes, device=device).unsqueeze(1)
+    flat_key = ((node * s_pad + cols[0]) * weeks + cols[1]).to(
+        torch.int64) * 2
+    keys = torch.cat([flat_key.reshape(-1),
+                      flat_key[cols[2] > 0].reshape(-1) + 1])
+    del flat_key
+    # the same columns with sites drawn uniformly: what the power law's
+    # hot sites cost K4 and its plain version
+    uniform = (torch.randint(0, num_sites, cols[0].shape, device=device,
+                             dtype=torch.int32),) + cols[1:]
+    k4 = kernel_row(
+        "segment_hist", sum(k4_launches.values()), err,
+        time_ms(lambda: sh.segment_hist(*cols, **kw), device, 10, 2),
+        time_ms(lambda: sh.segment_hist_plain(*cols, **kw), device, 2, 1),
+        time_ms(lambda: torch.bincount(
+            keys, minlength=nodes * s_pad * weeks * 2), device, 10, 2),
+        13 * total + 4 * nodes * s_pad * weeks * 2,
+        launches_by_path=k4_launches,
+        uniform_sites_ms=time_ms(lambda: sh.segment_hist(*uniform, **kw),
+                                 device, 10, 2),
+        uniform_sites_plain_ms=time_ms(
+            lambda: sh.segment_hist_plain(*uniform, **kw), device, 2, 1))
+    return k4
+
+
+def backend_stages(path, seed, cfg, flat, nodes, rps, s_pad, capacity,
+                   device) -> dict:
+    """Each stage of one backend's run timed on its own (one pass each):
+    generate, the local combine (K4) or the columns exchange, the
+    collective, the finalize."""
+    from repro_torch.common import nodes as nodes_lib
+    from repro_torch.common.types import WEEKS_PER_YEAR as weeks
+    from repro_torch.core.backends import (
+        mapreduce_combiner_histogram,
+        shuffle_stats,
+        sphere_histogram,
+        streams_histogram,
+    )
+    from repro_torch.core.backends.mapreduce import (
+        columns_shuffle_histogram,
+        shuffle_round_bound,
+    )
+    from repro_torch.core.runner import _finalize
+    from repro_torch.kernels.segment_hist import segment_hist_eventlog
+    from repro_torch.malgen import generate_shards_device
+
+    box, stage = {}, {}
+
+    def timed(name, key, fn):
+        stage[name] = time_ms(lambda: box.__setitem__(key, fn()), device,
+                              iters=1, warmup=0)
+
+    if path == "mapreduce+columns":
+        lg = flat.map(lambda c: c.reshape(nodes, -1))
+        timed("exchange+reduce", "out", lambda: columns_shuffle_histogram(
+            lg, num_sites=s_pad, num_weeks=weeks, capacity=capacity,
+            max_rounds=shuffle_round_bound(rps, capacity),
+            histogram_fn=segment_hist_eventlog))
+        owned, stats = box["out"]
+        timed("collective", "stats", lambda: shuffle_stats(stats))
+        timed("finalize", "result", lambda: _finalize(
+            nodes_lib.all_gather_unstride(owned).reshape(
+                nodes, s_pad // nodes, weeks, 2), "B"))
+        return stage
+    timed("generate", "log", lambda: generate_shards_device(
+        seed, cfg, nodes, rps, device=device))
+    timed("local combine", "local", lambda: segment_hist_eventlog(
+        box["log"], s_pad, weeks))
+    local = box["local"]
+    backend_fn, gather = {
+        "streams": (streams_histogram, lambda h: h),
+        "sphere": (sphere_histogram, nodes_lib.all_gather),
+        "mapreduce_combiner": (mapreduce_combiner_histogram,
+                               nodes_lib.all_gather_unstride)}[path]
+    timed("collective", "out", lambda: backend_fn(
+        box["log"], s_pad, weeks, histogram_fn=lambda *_: local))
+    timed("finalize", "result", lambda: _finalize(
+        gather(box["out"])[:cfg.num_sites], "B"))
+    return stage
+
+
+# ------------------------------------------------------------- phase 6
 def card_equals_cpu(device, nodes: int, rps: int) -> None:
     from repro_torch.common.types import ExchangePlan
     from repro_torch.core import malstone_run
@@ -509,6 +754,7 @@ def main() -> int:
         mp = main_path(device, NODES, RPS)
         kernels = kernels_at_main_shapes(device, mp)
         del mp["log"], mp["ordered"]
+        kernels.append(other_backends(device, NODES, RPS))
         card_equals_cpu(device, NODES, EQ_RPS)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -128,7 +128,7 @@ def safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return torch.where(den_f > 0, q, torch.zeros_like(q))
 
 
-EXCHANGE_IMPLS = ("auto", "sort", "counting")
+EXCHANGE_IMPLS = ("auto", "sort", "counting", "columns")
 HISTOGRAM_IMPLS = ("segment_sum", "kernel")
 
 
@@ -136,17 +136,19 @@ HISTOGRAM_IMPLS = ("segment_sum", "kernel")
 class ExchangePlan:
     """How the MapReduce backend moves and reduces records.
 
-    - ``impl``: ``"counting"`` (stable counting sort by destination, the
-      kernels K1 and K2), ``"sort"`` (stable argsort, its oracle) or
-      ``"auto"`` (counting whenever the one-word projection represents
-      the workload).
+    - ``impl``: ``"counting"`` (stable counting sort of packed words by
+      destination, the kernels K1 and K2), ``"sort"`` (stable argsort, its
+      oracle), ``"columns"`` (the 4-column exchange, re-ordered every
+      round) or ``"auto"`` (counting whenever the one-word projection
+      represents the workload, else columns).
     - ``capacity_factor``: per-destination bucket capacity as a fraction
       of ``records / P``; any value is lossless, smaller runs more rounds.
     - ``max_shuffle_rounds``: explicit round cap (``None`` = the provably
       sufficient bound); exhausting it raises ``ShuffleExhaustedError``.
-    - ``histogram_impl``: ``"kernel"`` (the default) reduces the shuffled
-      words with the fused unpack+histogram kernel K3; ``"segment_sum"``
-      unpacks and histograms with ``index_add_``.
+    - ``histogram_impl``: ``"kernel"`` (the default) reduces with the
+      hand-written kernels: K4 for every local combine and the columns
+      reducer, the fused unpack+histogram K3 for shuffled words;
+      ``"segment_sum"`` unpacks and histograms with ``index_add_``.
     """
 
     impl: str = "auto"
@@ -155,10 +157,6 @@ class ExchangePlan:
     histogram_impl: str = "kernel"
 
     def __post_init__(self):
-        if self.impl == "columns":
-            raise NotImplementedError(
-                "the 4-column 'columns' exchange is not ported yet "
-                "(ROADMAP.md Queue 1, item 2)")
         if self.impl not in EXCHANGE_IMPLS:
             raise ValueError(
                 f"ExchangePlan.impl must be one of {EXCHANGE_IMPLS}, "

@@ -2,8 +2,9 @@ from repro_torch.core.api import ENGINES, run
 from repro_torch.core.runner import (
     malstone_run,
     malstone_run_generated,
+    malstone_run_partitioned,
     pad_log_to,
 )
 
 __all__ = ["ENGINES", "malstone_run", "malstone_run_generated",
-           "pad_log_to", "run"]
+           "malstone_run_partitioned", "pad_log_to", "run"]

@@ -1,7 +1,8 @@
 """One front door for the port's MalStone drivers.
 
 Counterpart of ``repro/core/api.py:run``. The source is a flat
-:class:`EventLog` (engine ``"oneshot"``) or a MalGen ``SeedInfo`` (engine
+:class:`EventLog` (engine ``"oneshot"``; ``partitioned=True`` leaves the
+result split by site block) or a MalGen ``SeedInfo`` (engine
 ``"oneshot"`` or ``"generated"``: the nodes generate their records in
 place). The other engines of the JAX package are not ported yet.
 """
@@ -23,15 +24,16 @@ _UNPORTED_ENGINES = {
 
 def run(source, num_sites: Optional[int] = None, *, nodes: int,
         engine: str = "oneshot", plan: Optional[ExchangePlan] = None,
-        cfg=None, device=None, **kwargs):
+        cfg=None, partitioned: bool = False, device=None, **kwargs):
     """Run MalStone: route ``source`` x ``engine`` to its driver.
 
     ``nodes`` stands for the JAX mesh size. A log source needs
     ``num_sites``; a seed source needs ``cfg`` (and ``records_per_shard``
-    in ``kwargs``), and ``num_sites`` defaults to ``cfg.num_sites``. Other
-    keyword arguments (``statistic``, ``backend``,
-    ``return_shuffle_stats``, ...) pass through. Runs on the card unless
-    ``device="cpu"``.
+    in ``kwargs``), and ``num_sites`` defaults to ``cfg.num_sites``.
+    ``partitioned=True`` routes a log source with engine ``"oneshot"`` to
+    ``malstone_run_partitioned``. Other keyword arguments (``statistic``,
+    ``backend``, ``return_shuffle_stats``, ...) pass through. Runs on the
+    card unless ``device="cpu"``.
     """
     from repro_torch.core import runner
 
@@ -41,9 +43,18 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet "
             f"({_UNPORTED_ENGINES[engine]})")
-    if isinstance(source, EventLog):
-        if num_sites is None:
-            raise ValueError("an EventLog source requires num_sites=")
+    is_log = isinstance(source, EventLog)
+    if is_log and num_sites is None:
+        raise ValueError("an EventLog source requires num_sites=")
+    if partitioned:
+        if not (is_log and engine == "oneshot"):
+            raise ValueError(
+                "partitioned=True is the oneshot EventLog production "
+                "layout; other engines re-assemble the full-site result")
+        return runner.malstone_run_partitioned(
+            source, num_sites, nodes=nodes, plan=plan, device=device,
+            **kwargs)
+    if is_log:
         if engine == "generated":
             raise ValueError(
                 "engine 'generated' regenerates records on the device and "

@@ -1,4 +1,4 @@
-"""ExchangePlan -> the reducer the MapReduce backend consumes.
+"""ExchangePlan -> the reducers the backends consume.
 
 Counterpart of ``repro/core/plan.py``.
 """
@@ -12,7 +12,11 @@ from repro_torch.core.backends.mapreduce import (
     shuffle_round_bound,
     static_capacity,
 )
-from repro_torch.kernels.segment_hist import segment_hist_packed_words
+from repro_torch.core.spm import site_week_histogram
+from repro_torch.kernels.segment_hist import (
+    segment_hist_eventlog,
+    segment_hist_packed_words,
+)
 
 
 def _kernel_word_fn(words, s_local, num_weeks, p):
@@ -20,15 +24,21 @@ def _kernel_word_fn(words, s_local, num_weeks, p):
                                      num_partitions=p, num_weeks=num_weeks)
 
 
-def resolve_word_histogram_fn(plan: ExchangePlan):
-    """The ``word_histogram_fn`` for ``plan.histogram_impl`` (the JAX
-    package's ``resolve_histogram_fns``).
+def resolve_histogram_fns(plan: ExchangePlan):
+    """``(histogram_fn, word_histogram_fn)`` for ``plan.histogram_impl``.
 
-    ``"kernel"`` gives the fused word reducer K3; ``"segment_sum"`` gives
-    ``None``, so the shipped words are unpacked and reduced with
-    ``index_add_``.
+    - ``histogram_fn(log, num_sites, num_weeks)``: the local combine of
+      every backend and the columns exchange's reducer;
+    - ``word_histogram_fn(words, s_local, num_weeks, P)``: the reducer of
+      the word exchanges, or ``None`` to unpack and use ``index_add_``.
+
+    ``"kernel"`` gives K4 (``segment_hist_eventlog``) and the fused word
+    reducer K3; ``"segment_sum"`` gives ``spm.site_week_histogram``
+    (``index_add_``) and ``None``.
     """
-    return _kernel_word_fn if plan.histogram_impl == "kernel" else None
+    if plan.histogram_impl == "kernel":
+        return segment_hist_eventlog, _kernel_word_fn
+    return site_week_histogram, None
 
 
 def expected_shuffle_rounds(plan: Optional[ExchangePlan],

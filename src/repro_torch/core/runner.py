@@ -1,13 +1,17 @@
 """MalStone drivers over P nodes held on one device.
 
-Counterpart of the mapreduce route of ``repro/core/runner.py``:
-``malstone_run`` over a materialized log and ``malstone_run_generated``,
-where the nodes generate their records in place. The JAX mesh becomes the
-``nodes`` count: a flat log of ``nodes * n`` records is node-major, node d
-holding records ``[d*n, (d+1)*n)``, exactly the shards a mesh of ``nodes``
-devices would hold.
+Counterpart of the one-shot drivers of ``repro/core/runner.py``:
+``malstone_run`` over a materialized log, ``malstone_run_partitioned``
+(the same, with the result left split by site block) and
+``malstone_run_generated``, where the nodes generate their records in
+place. Each runs any of the four backends (``streams``, ``sphere``,
+``mapreduce``, ``mapreduce_combiner``); the port's default is
+``mapreduce``, the JAX package's ``streams`` (``sphere`` when
+partitioned). The JAX mesh becomes the ``nodes`` count: a flat log of
+``nodes * n`` records is node-major, node d holding records ``[d*n,
+(d+1)*n)``, exactly the shards a mesh of ``nodes`` devices would hold.
 
-Both drivers run on the card unless ``device="cpu"`` is passed; with no
+The drivers run on the card unless ``device="cpu"`` is passed; with no
 CUDA device and no ``device="cpu"`` they raise.
 """
 
@@ -26,30 +30,31 @@ from repro_torch.common.types import (
     WEEKS_PER_YEAR,
 )
 from repro_torch.core import spm as spm_lib
-from repro_torch.core.backends.mapreduce import (
+from repro_torch.core.backends import (
+    BACKENDS,
     ShuffleExhaustedError,
     ShuffleStats,
+    mapreduce_combiner_histogram,
     mapreduce_histogram,
     shuffle_stats,
+    sphere_histogram,
+    streams_histogram,
 )
-from repro_torch.core.plan import resolve_word_histogram_fn
+from repro_torch.core.plan import resolve_histogram_fns
 
-_UNPORTED_BACKENDS = ("streams", "sphere", "mapreduce_combiner")
+RUN_BACKENDS = BACKENDS + ("mapreduce_combiner",)
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "mapreduce":
-        return
-    if backend in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 2); the port runs 'mapreduce'")
-    raise ValueError(f"unknown backend {backend!r}")
+    if backend not in RUN_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; have {RUN_BACKENDS}")
 
 
-def _raise_if_exhausted(stats: ShuffleStats) -> None:
+def _raise_if_exhausted(stats: Optional[ShuffleStats]) -> None:
     """An explicit ``max_shuffle_rounds`` may stop the loop with records
     undelivered: that is an error, never a silent drop."""
+    if stats is None:
+        return
     undelivered = int(stats.overflow)
     if undelivered > 0:
         raise ShuffleExhaustedError(
@@ -74,27 +79,57 @@ def _finalize(hist: torch.Tensor, statistic: str) -> SpmResult:
     raise ValueError(f"unknown statistic {statistic!r}")
 
 
-def _local_backend_histogram(log: EventLog, s_pad: int, num_weeks: int,
-                             plan: ExchangePlan):
-    """Every node's mapreduce dataflow over a ``[P, n]`` log -> (the full
-    ``[s_pad, W, 2]`` histogram, global ShuffleStats)."""
-    owned, stats = mapreduce_histogram(
-        log, s_pad, num_weeks, capacity_factor=plan.capacity_factor,
-        max_rounds=plan.max_shuffle_rounds, impl=plan.impl,
-        word_histogram_fn=resolve_word_histogram_fn(plan))
-    return nodes_lib.all_gather_unstride(owned), shuffle_stats(stats)
+def _local_backend_histogram(log: EventLog, backend: str, s_pad: int,
+                             num_weeks: int, plan: ExchangePlan):
+    """Every node's backend dataflow over a ``[P, n]`` log -> (the full
+    ``[s_pad, W, 2]`` histogram, global ShuffleStats for ``mapreduce``,
+    else ``None``)."""
+    hist_fn, word_fn = resolve_histogram_fns(plan)
+    if backend == "streams":
+        return streams_histogram(log, s_pad, num_weeks,
+                                 histogram_fn=hist_fn), None
+    if backend == "sphere":
+        # owned contiguous blocks, gathered back to the full histogram
+        return nodes_lib.all_gather(sphere_histogram(
+            log, s_pad, num_weeks, histogram_fn=hist_fn)), None
+    stats = None
+    if backend == "mapreduce":
+        owned, stats = mapreduce_histogram(
+            log, s_pad, num_weeks, capacity_factor=plan.capacity_factor,
+            max_rounds=plan.max_shuffle_rounds, impl=plan.impl,
+            histogram_fn=hist_fn, word_histogram_fn=word_fn)
+        stats = shuffle_stats(stats)
+    elif backend == "mapreduce_combiner":
+        owned = mapreduce_combiner_histogram(log, s_pad, num_weeks,
+                                             histogram_fn=hist_fn)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    # owned rows are strided (site = row * P + d): gather + unstride
+    return nodes_lib.all_gather_unstride(owned), stats
 
 
-def _run_nodes(log: EventLog, num_sites: int, statistic: str,
+def _run_nodes(log: EventLog, num_sites: int, statistic: str, backend: str,
                num_weeks: int, plan: Optional[ExchangePlan],
                return_shuffle_stats: bool):
     plan = plan or ExchangePlan()
     parts = log.site_id.shape[0]
     s_pad = _pad_sites(num_sites, parts)
-    hist, stats = _local_backend_histogram(log, s_pad, num_weeks, plan)
+    hist, stats = _local_backend_histogram(log, backend, s_pad, num_weeks,
+                                           plan)
     _raise_if_exhausted(stats)
     result = _finalize(hist[:num_sites], statistic)
     return (result, stats) if return_shuffle_stats else result
+
+
+def _node_log(log: EventLog, nodes: int, device) -> EventLog:
+    """A flat node-major log as ``[nodes, n]`` columns on ``device``."""
+    if log.site_id.dim() != 1 or log.num_records % nodes:
+        raise ValueError(
+            f"the drivers take a flat log whose record count divides by "
+            f"nodes={nodes}; got shape {tuple(log.site_id.shape)} (pad "
+            f"with pad_log_to)")
+    return log.map(lambda c: torch.as_tensor(c, device=device)
+                   .reshape(nodes, -1))
 
 
 def malstone_run(log: EventLog, num_sites: int, *, nodes: int,
@@ -105,21 +140,50 @@ def malstone_run(log: EventLog, num_sites: int, *, nodes: int,
     """Run MalStone over a flat node-major log split over ``nodes`` nodes.
 
     Returns the full-site ``SpmResult`` (``(SpmResult, ShuffleStats)``
-    with ``return_shuffle_stats=True``). The record count must divide by
-    ``nodes`` (pad with ``pad_log_to``). An exhausted explicit round cap
-    raises ``ShuffleExhaustedError``.
+    with ``return_shuffle_stats=True``; the stats are ``None`` for the
+    backends other than ``mapreduce``, which shuffle no records). The
+    record count must divide by ``nodes`` (pad with ``pad_log_to``). An
+    exhausted explicit round cap raises ``ShuffleExhaustedError``.
     """
     _check_backend(backend)
     device = nodes_lib.resolve_device(device)
-    if log.site_id.dim() != 1 or log.num_records % nodes:
-        raise ValueError(
-            f"malstone_run takes a flat log whose record count divides by "
-            f"nodes={nodes}; got shape {tuple(log.site_id.shape)} (pad "
-            f"with pad_log_to)")
-    log = log.map(lambda c: torch.as_tensor(c, device=device)
-                  .reshape(nodes, -1))
-    return _run_nodes(log, num_sites, statistic, num_weeks, plan,
-                      return_shuffle_stats)
+    return _run_nodes(_node_log(log, nodes, device), num_sites, statistic,
+                      backend, num_weeks, plan, return_shuffle_stats)
+
+
+def malstone_run_partitioned(log: EventLog, num_sites: int, *, nodes: int,
+                             statistic: str = "B",
+                             backend: str = "mapreduce",
+                             num_weeks: int = WEEKS_PER_YEAR,
+                             plan: Optional[ExchangePlan] = None,
+                             device=None,
+                             return_shuffle_stats: bool = False):
+    """``malstone_run`` with the result left partitioned by site block:
+    every array of the ``SpmResult`` has a leading ``[nodes, s_pad /
+    nodes]`` axis, node d owning sites ``[d * s_pad/P, (d+1) * s_pad/P)``
+    of the padded site range ``s_pad = ceil(num_sites / P) * P``. The
+    blocks joined in node order give JAX's ``malstone_run_partitioned``
+    result, padding included.
+
+    ``sphere`` finalizes its owned blocks and never makes the full-site
+    histogram; the other backends cut their full histogram into blocks.
+    """
+    _check_backend(backend)
+    device = nodes_lib.resolve_device(device)
+    log = _node_log(log, nodes, device)
+    plan = plan or ExchangePlan()
+    s_pad = _pad_sites(num_sites, nodes)
+    if backend == "sphere":
+        hist_fn, _ = resolve_histogram_fns(plan)
+        owned = sphere_histogram(log, s_pad, num_weeks, histogram_fn=hist_fn)
+        stats = None
+    else:
+        hist, stats = _local_backend_histogram(log, backend, s_pad,
+                                               num_weeks, plan)
+        _raise_if_exhausted(stats)
+        owned = hist.reshape(nodes, s_pad // nodes, *hist.shape[1:])
+    result = _finalize(owned, statistic)
+    return (result, stats) if return_shuffle_stats else result
 
 
 def malstone_run_generated(seed, cfg, *, nodes: int, records_per_shard: int,
@@ -138,8 +202,8 @@ def malstone_run_generated(seed, cfg, *, nodes: int, records_per_shard: int,
     device = nodes_lib.resolve_device(device)
     log = generate_shards_device(seed, cfg, nodes, records_per_shard,
                                  device=device)
-    return _run_nodes(log, num_sites or cfg.num_sites, statistic, num_weeks,
-                      plan, return_shuffle_stats)
+    return _run_nodes(log, num_sites or cfg.num_sites, statistic, backend,
+                      num_weeks, plan, return_shuffle_stats)
 
 
 def pad_log_to(log: EventLog, target: int) -> EventLog:

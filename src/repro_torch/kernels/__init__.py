@@ -3,12 +3,16 @@ counters (each wrapper adds one to ``<wrapper>.launches`` where it launches
 its kernel, and nowhere else)."""
 
 from repro_torch.kernels.count_scatter.ops import count_tiles, scatter_tiles
-from repro_torch.kernels.segment_hist.ops import segment_hist_packed_words
+from repro_torch.kernels.segment_hist.ops import (
+    segment_hist,
+    segment_hist_packed_words,
+)
 
 KERNEL_WRAPPERS = {
     "count_scatter.count": count_tiles,
     "count_scatter.scatter": scatter_tiles,
     "segment_hist.packed": segment_hist_packed_words,
+    "segment_hist": segment_hist,
 }
 
 

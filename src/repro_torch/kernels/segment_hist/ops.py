@@ -1,11 +1,21 @@
-"""The MapReduce reducer's fused unpack + histogram over packed words.
+"""The (total, marked) site-week histogram kernels, batched over the nodes.
 
-Counterpart of ``repro/kernels/segment_hist/ops.py:segment_hist_packed_words``,
-batched over the receiving nodes: ``words`` is int32 ``[P, L]``, row ``r``
-holding the L words node ``r`` received. On a CUDA tensor the wrapper
-launches K3 (``csrc/segment_hist_packed.cu``) once for all P nodes; on a
-CPU tensor it runs ``segment_hist_packed_words_plain`` (unpack, then
-``index_add_``). Launches are counted in
+Counterpart of ``repro/kernels/segment_hist/ops.py``:
+
+- ``segment_hist`` / ``segment_hist_eventlog`` (JAX ``ops.py:30`` and
+  ``:59``) reduce int32 ``(site, week, mark, valid)`` columns of shape
+  ``[P, n]`` into int32 ``[P, S, W, 2]``, one histogram per node. On a CUDA
+  tensor the wrapper launches K4 (``csrc/segment_hist.cu``) once for all P
+  nodes; on a CPU tensor it runs ``segment_hist_plain``.
+- ``segment_hist_packed_words`` is the MapReduce reducer's fused unpack +
+  histogram over shuffled words: row ``r`` of int32 ``[P, L]`` holds the L
+  words node ``r`` received. On a CUDA tensor it launches K3
+  (``csrc/segment_hist_packed.cu``); on a CPU tensor it runs
+  ``segment_hist_packed_words_plain`` (unpack, then ``index_add_``).
+
+Both count ``mark > 0``, as ``segment_hist_ref`` does; the JAX Pallas
+``_kernel`` adds the raw mark value, which agrees only for marks in {0, 1}
+(ROADMAP.md Queue 3). Launches are counted in ``segment_hist.launches`` and
 ``segment_hist_packed_words.launches``.
 """
 
@@ -16,9 +26,16 @@ import functools
 
 import torch
 
-from repro_torch.common.types import WEEKS_PER_YEAR, unpack_site_week_mark
+from repro_torch.common.types import (
+    EventLog,
+    WEEKS_PER_YEAR,
+    unpack_site_week_mark,
+)
 from repro_torch.kernels._build import library
 from repro_torch.kernels.segment_hist.ref import segment_hist_ref
+
+_MAX_NODES = 65_535          # gridDim.y of the launch
+_INT32_MIN, _INT32_MAX = -2**31, 2**31 - 1
 
 
 @functools.cache
@@ -28,6 +45,91 @@ def _lib() -> ctypes.CDLL:
     lib.packed_hist.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr]
     lib.packed_hist.restype = i32
     return lib
+
+
+@functools.cache
+def _hist_lib() -> ctypes.CDLL:
+    lib = library("segment_hist")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.segment_hist.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32,
+                                 i32, ptr]
+    lib.segment_hist.restype = i32
+    return lib
+
+
+def segment_hist_plain(site: torch.Tensor, week: torch.Tensor,
+                       mark: torch.Tensor, valid: torch.Tensor, *,
+                       num_sites: int, num_weeks: int = WEEKS_PER_YEAR,
+                       site_offset: int = 0) -> torch.Tensor:
+    """Plain version of K4: ``segment_hist_ref`` of the rebased sites."""
+    return segment_hist_ref(site - site_offset, week, mark, valid,
+                            num_sites, num_weeks)
+
+
+def segment_hist(site: torch.Tensor, week: torch.Tensor, mark: torch.Tensor,
+                 valid: torch.Tensor, *, num_sites: int,
+                 num_weeks: int = WEEKS_PER_YEAR,
+                 site_offset: int = 0) -> torch.Tensor:
+    """int32 ``[P, num_sites, num_weeks, 2]`` (total, marked) histograms of
+    ``[P, n]`` columns, one per row. ``site``, ``week`` and ``mark`` are
+    int32, ``valid`` bool. A row counts where it is valid and ``site -
+    site_offset`` and ``week`` are in range; ``marked`` counts ``mark >
+    0``."""
+    for name, t, dtype in (("site", site, torch.int32),
+                           ("week", week, torch.int32),
+                           ("mark", mark, torch.int32),
+                           ("valid", valid, torch.bool)):
+        if t.dim() != 2 or t.shape != site.shape:
+            raise ValueError(f"segment_hist: {name} must be [P, n] like "
+                             f"site {tuple(site.shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise ValueError(f"segment_hist: {name} must be {dtype}, got "
+                             f"{t.dtype}")
+        if t.device != site.device:
+            raise ValueError(f"segment_hist: {name} on {t.device}, site on "
+                             f"{site.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"segment_hist: {name} must be contiguous")
+    if num_sites < 1 or num_weeks < 1:
+        raise ValueError(f"segment_hist: num_sites={num_sites}, "
+                         f"num_weeks={num_weeks}")
+    if not _INT32_MIN <= site_offset <= _INT32_MAX:
+        raise ValueError(f"segment_hist: site_offset {site_offset} is not "
+                         f"an int32")
+    if site.device.type != "cuda":
+        return segment_hist_plain(site, week, mark, valid,
+                                  num_sites=num_sites, num_weeks=num_weeks,
+                                  site_offset=site_offset)
+    p, n = site.shape
+    if p > _MAX_NODES:
+        raise ValueError(f"segment_hist: {p} rows exceed the launch's "
+                         f"{_MAX_NODES}")
+    hist = torch.zeros(p, num_sites, num_weeks, 2, dtype=torch.int32,
+                       device=site.device)
+    segment_hist.launches += 1
+    err = _hist_lib().segment_hist(
+        site.data_ptr(), week.data_ptr(), mark.data_ptr(), valid.data_ptr(),
+        hist.data_ptr(), n, p, num_sites, num_weeks, site_offset,
+        torch.cuda.current_stream(site.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_hist: CUDA launch failed with error "
+                           f"{err}")
+    return hist
+
+
+segment_hist.launches = 0
+
+
+def segment_hist_eventlog(log: EventLog, num_sites: int,
+                          num_weeks: int = WEEKS_PER_YEAR,
+                          site_offset: int = 0) -> torch.Tensor:
+    """Drop-in for ``core.spm.site_week_histogram`` over a ``[P, n]`` log,
+    backed by K4 on the card: int32 ``[P, num_sites, num_weeks, 2]``."""
+    return segment_hist(
+        log.site_id.contiguous(), log.week(num_weeks=num_weeks).contiguous(),
+        log.mark.contiguous(), log.valid_mask().contiguous(),
+        num_sites=num_sites, num_weeks=num_weeks, site_offset=site_offset)
 
 
 def segment_hist_packed_words_plain(words: torch.Tensor, *,

@@ -3,7 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.malstone --nodes 8 \\
         --records-per-node 1048576 --gen-device
 
-The flags are those of ``repro.launch.malstone`` that the port supports.
+The flags are those of ``repro.launch.malstone`` that the port supports;
+``--backend`` picks one of the four stacks (``streams``, ``sphere``,
+``mapreduce``, ``mapreduce_combiner``).
 The P nodes are a leading axis of tensors on one device (``--device cuda``,
 the default, or ``cpu`` for the plain PyTorch path). ``--gen-device`` fuses
 MalGen into the run: every node generates its shard in place and the timed
@@ -21,10 +23,15 @@ import time
 import torch
 
 from repro_torch.common.nodes import resolve_device
-from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
+from repro_torch.common.types import (
+    EXCHANGE_IMPLS,
+    HISTOGRAM_IMPLS,
+    ExchangePlan,
+    WEEKS_PER_YEAR,
+)
 from repro_torch.core import run
 from repro_torch.core.backends import resolve_exchange_impl
-from repro_torch.core.runner import _pad_sites
+from repro_torch.core.runner import RUN_BACKENDS, _pad_sites
 from repro_torch.malgen import MalGenConfig, generate_shards_device, make_seed
 
 
@@ -49,8 +56,12 @@ def main(argv=None):
     ap.add_argument("--records-per-node", type=int, default=262_144)
     ap.add_argument("--sites", type=int, default=10_000)
     ap.add_argument("--entities", type=int, default=100_000)
-    ap.add_argument("--backend", default="mapreduce", choices=("mapreduce",),
-                    help="the port runs the mapreduce record shuffle")
+    ap.add_argument("--backend", default="mapreduce", choices=RUN_BACKENDS,
+                    help="the dataflow: streams (combine + all-reduce),"
+                         " sphere (combine + reduce-scatter), mapreduce (the"
+                         " record shuffle) or mapreduce_combiner (combine +"
+                         " shuffle of histogram blocks); default mapreduce"
+                         " (the JAX launcher's default is sphere)")
     ap.add_argument("--statistic", default="B",
                     choices=("A", "B", "B-fixed"))
     ap.add_argument("--runs", type=int, default=3)
@@ -62,15 +73,18 @@ def main(argv=None):
                     help="cap the shuffle rounds (default: the provably"
                          " sufficient bound); an exhausted cap is an error")
     ap.add_argument("--exchange-impl", default="auto",
-                    choices=("auto", "sort", "counting"),
-                    help="'counting' orders the packed words with the"
-                         " counting-sort kernels, 'sort' with a stable"
-                         " argsort; 'auto' = counting")
+                    choices=EXCHANGE_IMPLS,
+                    help="mapreduce only: 'counting' orders the packed words"
+                         " with the counting-sort kernels, 'sort' with a"
+                         " stable argsort, 'columns' ships four columns a"
+                         " record; 'auto' = counting where the word"
+                         " represents the workload, else columns")
     ap.add_argument("--histogram-impl", default="kernel",
-                    choices=("segment_sum", "kernel"),
-                    help="'kernel' reduces the shuffled words with the fused"
-                         " unpack+histogram kernel; 'segment_sum' unpacks"
-                         " and uses index_add_")
+                    choices=HISTOGRAM_IMPLS,
+                    help="'kernel' reduces with the hand-written kernels"
+                         " (segment_hist, and the fused unpack+histogram"
+                         " for shuffled words); 'segment_sum' uses"
+                         " index_add_")
     ap.add_argument("--gen-device", action="store_true",
                     help="generate every node's shard in place inside the"
                          " timed run")
@@ -88,7 +102,7 @@ def main(argv=None):
                         histogram_impl=args.histogram_impl)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"device: {kind}")
+    print(f"device: {kind}; backend: {args.backend}")
 
     seed, ms = _timed(lambda: make_seed(0, cfg, total, device=device),
                       device)
@@ -121,14 +135,15 @@ def main(argv=None):
     mode = "gen-device" if args.gen_device else "one-shot"
     print(f"MalStone {args.statistic} [{args.backend}, {mode}] median "
           f"{statistics.median(samples):.3f} ms over {args.runs} runs")
-    impl = resolve_exchange_impl(plan.impl,
-                                 _pad_sites(args.sites, args.nodes),
-                                 WEEKS_PER_YEAR)
-    print(f"  shuffle: packed impl={impl} rounds={stats.rounds} "
-          f"capacity={stats.capacity}/dest sent={int(stats.sent)} "
-          f"deferred={int(stats.residual)} "
-          f"bytes={int(stats.bytes_exchanged):,} "
-          f"overflow={int(stats.overflow)}")
+    if stats is not None:
+        impl = resolve_exchange_impl(plan.impl,
+                                     _pad_sites(args.sites, args.nodes),
+                                     WEEKS_PER_YEAR)
+        print(f"  shuffle: impl={impl} rounds={stats.rounds} "
+              f"capacity={stats.capacity}/dest sent={int(stats.sent)} "
+              f"deferred={int(stats.residual)} "
+              f"bytes={int(stats.bytes_exchanged):,} "
+              f"overflow={int(stats.overflow)}")
     print(f"  rho {tuple(result.rho.shape)} mean "
           f"{float(result.rho.double().mean()):.6f}")
 

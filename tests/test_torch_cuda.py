@@ -11,14 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import malstone_run
+from repro_torch.core import malstone_run, run
 from repro_torch.common.types import ExchangePlan
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.count_scatter import ops as cs
 from repro_torch.kernels.count_scatter import count_scatter_ref
 from repro_torch.kernels.segment_hist import (
+    segment_hist,
     segment_hist_packed_words,
     segment_hist_packed_words_plain,
+    segment_hist_plain,
 )
 from repro_torch.malgen import MalGenConfig, generate_shards_device, make_seed
 
@@ -126,3 +128,68 @@ def test_slice_on_card_equals_cpu(cuda_device):
     torch.testing.assert_close(got.rho.cpu().view(torch.int32),
                                want.rho.view(torch.int32), rtol=0, atol=0)
     assert [int(x) for x in gs] == [int(x) for x in ws]
+
+
+def _k4_case(seed, rows, n, num_sites, num_weeks, device):
+    """Columns with invalid rows, sites and weeks out of range and marks in
+    {-1, 0, 1, 2}."""
+    rng = np.random.default_rng(seed)
+    cols = (rng.integers(-3, num_sites + 3, size=(rows, n), dtype=np.int32),
+            rng.integers(-2, num_weeks + 2, size=(rows, n), dtype=np.int32),
+            rng.integers(-1, 3, size=(rows, n), dtype=np.int32),
+            rng.random((rows, n)) < 0.8)
+    return [torch.from_numpy(c).to(device) for c in cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,num_sites,num_weeks,offset", [
+    (1, 1, 5, 52, 0), (3, 70_001, 300, 52, 0), (8, 100_000, 12_500, 52, 0),
+    (2, 257, 10, 65, 17), (4, 5000, 40, 52, -3)])
+def test_segment_hist_equals_plain(cuda_device, rows, n, num_sites,
+                                   num_weeks, offset):
+    site, week, mark, valid = _k4_case(n, rows, n, num_sites, num_weeks,
+                                       cuda_device)
+    site += offset
+    kw = dict(num_sites=num_sites, num_weeks=num_weeks, site_offset=offset)
+    reset_launch_counts()
+    got = segment_hist(site, week, mark, valid, **kw)
+    assert launch_counts()["segment_hist"] == 1
+    torch.testing.assert_close(got, segment_hist_plain(site, week, mark,
+                                                       valid, **kw),
+                               rtol=0, atol=0)
+    one = torch.full_like(site, offset + num_sites - 1)     # one hot site
+    torch.testing.assert_close(segment_hist(one, week, mark, valid, **kw),
+                               segment_hist_plain(one, week, mark, valid,
+                                                  **kw), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_backends_agree_on_the_card(cuda_device):
+    """The four backends (columns for mapreduce) give one result on the
+    card, equal to the CPU's, through K4 (one launch per local combine,
+    one per columns round)."""
+    cfg = MalGenConfig(num_sites=1001, num_entities=5000)
+    seed = make_seed(3, cfg, 4 * 50_000, device=cuda_device)
+    log = generate_shards_device(seed, cfg, 4, 50_000,
+                                 device=cuda_device).map(
+        lambda c: c.reshape(-1))
+    want = malstone_run(log.to("cpu"), 1001, nodes=4, device="cpu",
+                        plan=ExchangePlan(capacity_factor=0.5))
+    for backend, impl in (("streams", "auto"), ("sphere", "auto"),
+                          ("mapreduce_combiner", "auto"),
+                          ("mapreduce", "columns")):
+        plan = ExchangePlan(impl=impl, capacity_factor=0.5)
+        reset_launch_counts()
+        got, stats = run(log, 1001, nodes=4, backend=backend, plan=plan,
+                         device=cuda_device, return_shuffle_stats=True)
+        rounds = 1 if stats is None else stats.rounds
+        assert launch_counts()["segment_hist"] == rounds, backend
+        torch.testing.assert_close(got.total.cpu(), want.total, rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(got.rho.cpu().view(torch.int32),
+                                   want.rho.view(torch.int32), rtol=0,
+                                   atol=0)
+        part = run(log, 1001, nodes=4, backend=backend, plan=plan,
+                   partitioned=True, device=cuda_device)
+        torch.testing.assert_close(part.total.reshape(-1, 52)[:1001].cpu(),
+                                   want.total, rtol=0, atol=0)

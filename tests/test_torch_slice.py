@@ -119,7 +119,10 @@ from repro_torch.core import (  # noqa: E402
     malstone_run_generated,
     run,
 )
-from repro_torch.core.backends import ShuffleExhaustedError  # noqa: E402
+from repro_torch.core.backends import (  # noqa: E402
+    ShuffleExhaustedError,
+    resolve_exchange_impl,
+)
 from repro_torch.core.plan import expected_shuffle_rounds  # noqa: E402
 from repro_torch.malgen import (  # noqa: E402
     MalGenConfig,
@@ -287,16 +290,19 @@ def test_expected_shuffle_rounds_bounds_the_loop(p4):
 
 
 def test_plan_and_entry_point_contracts():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        ExchangePlan(impl="columns")
+    assert ExchangePlan(impl="columns").impl == "columns"
+    with pytest.raises(ValueError):
+        ExchangePlan(impl="packed")
     with pytest.raises(ValueError):
         ExchangePlan(histogram_impl="pallas")
     log = EventLog(*[torch.zeros(8, dtype=torch.int32) for _ in COLS])
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        malstone_run(log, 4, nodes=2, backend="sphere", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        malstone_run(log, 4, nodes=2, backend="hadoop", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
         run(log, 4, nodes=2, engine="streaming", device="cpu")
-    with pytest.raises(NotImplementedError, match="columns"):
-        malstone_run(log, 1 << 25, nodes=2, device="cpu")
+    assert resolve_exchange_impl("auto", 1 << 25, 52) == "columns"
+    with pytest.raises(ValueError, match="one-word projection"):
+        malstone_run(log, 1 << 25, nodes=2, device="cpu",
+                     plan=ExchangePlan(impl="counting"))
     with pytest.raises(ValueError, match="divides"):
         malstone_run(log, 4, nodes=3, device="cpu")
