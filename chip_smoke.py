@@ -31,6 +31,20 @@
    K4 at these shapes as in 4.
 6. At 8 x 2^20 records, the card's result equals the port's own CPU run of
    the same log (histogram, rho bits, every ShuffleStats field).
+7. The query service: (a) K5, the masked window-ratio kernel, bit-equal to
+   its plain version on edge cases (N, W and S sweeps, zero denominators,
+   counts above 2^24); (b) ``MalStoneService`` at full width, each backend
+   with the launch counts set to 0 just before it is driven and read just
+   after: ``streams`` and ``mapreduce`` (counting exchange) fold 8 ingest
+   steps of 8 x 2^20 records from a streaming seed, ``sphere`` and
+   ``mapreduce_combiner`` 2 steps. The resident snapshot equals the
+   streaming engine (rho bits of A, B and B-fixed, every ShuffleStats
+   field) and the one-shot counting run over ``generate_chunked_log``;
+   the ``mixed`` and ``growing`` query batches launch K5 once each, equal
+   its plain version, and the 52 growing B answers equal ``malstone_b``'s
+   rho columns. Prints ingest and query latency percentiles, records/s,
+   sustained queries/s, peak memory, a profile, and K5 against its plain
+   version, a matmul yardstick and its bound.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
@@ -51,13 +65,20 @@ import time
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-# H100 SXM HBM3, NVIDIA data sheet. Each kernel does a few integer
-# operations per 4-byte element it reads, so its operation time at any of
-# the card's ALU rates is far below its byte time: bound_ms is the byte time
-# (inputs read once, outputs written once) at this rate.
+# H100 SXM HBM3, NVIDIA data sheet. K1-K4 do a few integer operations per
+# 4-byte element they read, so their operation time at any of the card's
+# ALU rates is far below their byte time: their bound_ms is the byte time
+# (inputs read once, outputs written once) at this rate. K5's integer adds
+# are counted too, at the card's 32-bit rate outside the tensor cores
+# (the data sheet's float32 67 T/s; it gives no separate INT32 rate); its
+# bound is the larger of the two times.
 HBM_BYTES_PER_S = 3.35e12
+OPS32_PER_S = 67e12
 NODES, RPS = 8, 1 << 23            # main path: 67,108,864 records
 EQ_RPS = 1 << 20                   # equality phase: 8,388,608 records
+SERVE_CHUNK, SERVE_STEPS = 1 << 20, 8   # service: 8 x 8 x 2^20 records
+SERVE_SMALL_STEPS = 2                   # sphere and the combiner
+QUERY_BATCHES = 20
 CAPACITY_FACTOR = 2.0
 KERNEL_INFO = {
     "count_scatter.count": (
@@ -72,6 +93,9 @@ KERNEL_INFO = {
     "segment_hist": (
         "src/repro_torch/kernels/csrc/segment_hist.cu",
         "src/repro/kernels/segment_hist/segment_hist.py:66"),
+    "windowed_ratio.masked": (
+        "src/repro_torch/kernels/csrc/windowed_ratio_masked.cu",
+        "src/repro/kernels/windowed_ratio/windowed_ratio.py:53"),
 }
 # the kernels of the counting main path (phase 3)
 MAIN_KERNELS = ("count_scatter.count", "count_scatter.scatter",
@@ -416,16 +440,19 @@ def profile(drive, device, top: int = 12) -> dict:
 
 # ------------------------------------------------------------- phase 4
 def kernel_row(name, launches, err, ms, plain_ms, library_ms, bytes_moved,
-               **extra) -> dict:
-    """One kernel's entry of the kernels line; the bound is its bytes
-    (inputs read once, outputs written once) at the card's memory rate."""
+               ops: int = 0, **extra) -> dict:
+    """One kernel's entry of the kernels line; the bound is the larger of
+    its bytes (inputs read once, outputs written once) at the card's memory
+    rate and its ``ops`` at the 32-bit rate."""
     source, replaces = KERNEL_INFO[name]
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS32_PER_S * 1e3
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "library_ms": library_ms,
-           "match": err == 0.0, **extra}
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms, "match": err == 0.0, **extra}
     log("kernel", json.dumps(row))
     return row
 
@@ -594,7 +621,8 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                 check(stats is None, f"{path} returned ShuffleStats")
             expect = {"segment_hist": rounds, "segment_hist.packed": 0,
                       "count_scatter.count": rounds if blocks else 0,
-                      "count_scatter.scatter": rounds if blocks else 0}
+                      "count_scatter.scatter": rounds if blocks else 0,
+                      "windowed_ratio.masked": 0}
             check(launches == expect, f"{path} {stat}: launches "
                                       f"{launches}, expected {expect}")
         k4_launches[path] = launches["segment_hist"]
@@ -731,6 +759,332 @@ def card_equals_cpu(device, nodes: int, rps: int) -> None:
                  f"bits, all ShuffleStats; rounds={gs.rounds})")
 
 
+# ------------------------------------------------------------- phase 7
+def k5_case(seed: int, n: int, w: int, s: int, device, *, high: int = 1000,
+            density: float = 0.5):
+    """A histogram with empty sites and random masks (int32 counts in
+    ``[0, high)``)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hist = torch.randint(0, high, (s, w, 2), generator=g, dtype=torch.int32)
+    hist[torch.rand(s, generator=g) < 0.2] = 0
+    nm = torch.rand((n, w), generator=g) < density
+    dm = torch.rand((n, w), generator=g) < density
+    return hist.to(device), nm.to(device), dm.to(device)
+
+
+def k5_exact(name: str, got, want) -> float:
+    """K5 against its plain version: rho by its bits, num, den."""
+    return exact(name, (got[0].view(torch.int32), got[1], got[2]),
+                 (want[0].view(torch.int32), want[1], want[2]))
+
+
+def k5_edge_cases(device) -> int:
+    """K5 over N in {1, 9, 52, 57}, W in {1, 52, 64, 65} and S in {1, 700,
+    1000} (1000 is no multiple of the 128-site block), all-zero
+    denominators, and sums above 2^24 and past 2^31 (int32 wrap). Returns
+    the number of cases."""
+    from repro_torch.kernels.windowed_ratio import ops as wr
+
+    count = 0
+    for n in (1, 9, 52, 57):
+        for w in (1, 52, 64, 65):
+            for s in (1, 700, 1000):
+                args = k5_case(n * 10_000 + w * 100 + s, n, w, s, device)
+                k5_exact(f"K5 N={n} W={w} S={s}",
+                         wr.masked_window_ratio(*args),
+                         wr.masked_window_ratio_plain(*args))
+                count += 1
+    hist, nm, _ = k5_case(1, 57, 52, 700, device)
+    zero = torch.zeros_like(nm)
+    got = wr.masked_window_ratio(hist, nm, zero)
+    k5_exact("K5 zero denominators", got,
+             wr.masked_window_ratio_plain(hist, nm, zero))
+    check(not bool(got[0].any()), "K5: rho != 0 where den == 0")
+    for name, high in (("above 2^24", 1 << 20), ("past 2^31", 1 << 27)):
+        hist, nm, dm = k5_case(2, 52, 65, 1000, device, high=high,
+                               density=0.9)
+        got = wr.masked_window_ratio(hist, nm, dm)
+        k5_exact(f"K5 sums {name}", got,
+                 wr.masked_window_ratio_plain(hist, nm, dm))
+        check(int(got[1].max()) > 1 << 24, f"K5 {name}: no sum above 2^24")
+    check(int(got[1].min()) < 0, "K5 past 2^31: no sum wrapped")
+    count += 3
+    log("kernel", f"K5 bit-equal to plain on {count} cases")
+    return count
+
+
+def timed_samples(fn, n: int, device) -> list:
+    """Milliseconds of ``n`` calls, each between two synchronizes."""
+    out = []
+    for _ in range(n):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def serving(device, nodes: int, chunk: int, steps: int,
+            small_steps: int) -> dict:
+    """Drive ``MalStoneService`` for every backend and check it; returns
+    K5's kernels-line entry."""
+    from repro_torch.bench.schema import latency_percentiles as percentiles
+    from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
+    from repro_torch.core import malstone_run, run
+    from repro_torch.core import spm
+    from repro_torch.core.backends.mapreduce import (
+        shuffle_round_bound,
+        static_capacity,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve_malstone import build_query_mix
+    from repro_torch.malgen import (
+        MalGenConfig,
+        generate_chunked_log,
+        make_seed_streaming,
+    )
+    from repro_torch.serve import MalStoneService, encode_query_batch
+
+    cuda = device.type == "cuda"
+    cfg = MalGenConfig()
+    num_sites, weeks = cfg.num_sites, WEEKS_PER_YEAR
+    plan = ExchangePlan(impl="counting", capacity_factor=CAPACITY_FACTOR)
+    mixes = {m: build_query_mix(m, num_sites=num_sites, top_k=8)
+             for m in ("mixed", "growing")}
+    seeds, oneshot = {}, {}
+    k5_launches, k5_inputs = 0, None
+    round_bound = shuffle_round_bound(
+        chunk, static_capacity(chunk, nodes, CAPACITY_FACTOR))
+    for backend, n_steps in (("streams", steps), ("mapreduce", steps),
+                             ("sphere", small_steps),
+                             ("mapreduce_combiner", small_steps)):
+        num_chunks = nodes * n_steps
+        if n_steps not in seeds:
+            seeds[n_steps] = make_seed_streaming(2, cfg, num_chunks, chunk,
+                                                 device=device)
+            lg = generate_chunked_log(seeds[n_steps], cfg, num_chunks, chunk)
+            oneshot[n_steps] = {
+                stat: malstone_run(lg, num_sites, nodes=nodes,
+                                   backend="mapreduce", statistic=stat,
+                                   plan=plan, device=device)
+                for stat in STATISTICS}
+            del lg
+        seed = seeds[n_steps]
+        svc = MalStoneService(nodes=nodes, num_sites=num_sites,
+                              chunk_records=chunk, backend=backend,
+                              seed=seed, cfg=cfg, num_chunks=num_chunks,
+                              plan=plan, device=device)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device) if cuda else 0
+        # the main path of this phase: ingest every step, snapshot, answer
+        # both batches; launch counts read per step and per batch
+        ingest_ms, per_step = [], []
+        for _ in range(n_steps):
+            reset_launch_counts()
+            ingest_ms += timed_samples(lambda: svc.ingest_chunks(1), 1,
+                                       device)
+            per_step.append(launch_counts())
+        hist, stats = svc.snapshot()
+        answers = {}
+        for mix, specs in mixes.items():
+            reset_launch_counts()
+            answers[mix] = svc.query(specs)
+            got = launch_counts()
+            check(got == dict.fromkeys(got, 0) | {"windowed_ratio.masked": 1},
+                  f"{backend} {mix} batch: launches {got}")
+            k5_launches += got["windowed_ratio.masked"]
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        for i, got in enumerate(per_step):
+            k3 = got["segment_hist.packed"]
+            if backend == "mapreduce":
+                want = {"count_scatter.count": 1, "count_scatter.scatter": 1,
+                        "segment_hist.packed": k3, "segment_hist": 0}
+                check(1 <= k3 <= round_bound,
+                      f"mapreduce step {i}: {k3} K3 launches (rounds)")
+            else:
+                want = {"count_scatter.count": 0, "count_scatter.scatter": 0,
+                        "segment_hist.packed": 0, "segment_hist": 1}
+            want["windowed_ratio.masked"] = 0
+            check(got == want, f"{backend} ingest step {i}: launches {got}, "
+                               f"expected {want}")
+
+        # the snapshot equals the streaming engine and the one-shot run
+        for stat in STATISTICS:
+            res = svc.result(stat)
+            ref, ref_stats = run(seed, num_sites, nodes=nodes,
+                                 engine="streaming", cfg=cfg,
+                                 num_chunks=num_chunks, chunk_records=chunk,
+                                 backend=backend, statistic=stat, plan=plan,
+                                 device=device, return_shuffle_stats=True)
+            for want, what in ((ref, "streaming engine"),
+                               (oneshot[n_steps][stat], "one-shot run")):
+                for f in ("total", "marked", "rho"):
+                    check(torch.equal(getattr(res, f).view(torch.int32),
+                                      getattr(want, f).view(torch.int32)),
+                          f"{backend} {stat}: {f} differs from the {what}")
+            if backend == "mapreduce":
+                for f in ref_stats._fields:
+                    check(int(getattr(stats, f)) == int(getattr(ref_stats, f)),
+                          f"{backend}: ShuffleStats.{f} differs from the "
+                          f"streaming engine")
+                check(int(stats.overflow) == 0 and int(stats.sent)
+                      == nodes * n_steps * chunk, "service shuffle lost "
+                                                  "records")
+            else:
+                check(stats is None, f"{backend} returned ShuffleStats")
+
+        # the answers: K5 equals its plain version, B columns, top-k
+        from repro_torch.kernels.windowed_ratio import ops as wr
+
+        b_rho = spm.malstone_b(hist).rho.cpu().numpy()
+        for mix, specs in mixes.items():
+            batch = encode_query_batch(specs, weeks, num_sites)
+            nm = torch.from_numpy(batch.num_masks).to(device)
+            dm = torch.from_numpy(batch.den_masks).to(device)
+            got = [torch.from_numpy(getattr(a, f)).to(device)
+                   for f in ("rho", "num", "den") for a in answers[mix]]
+            n = len(specs)
+            got = [torch.stack(got[i * n:(i + 1) * n]) for i in range(3)]
+            k5_exact(f"{backend} {mix}: the answers",
+                     got, wr.masked_window_ratio_plain(hist, nm, dm))
+            if mix == "growing":
+                for i, a in enumerate(answers[mix]):
+                    check((a.rho.view("int32")
+                           == b_rho[:, i].view("int32")).all(),
+                          f"{backend}: growing B answer {i} != malstone_b")
+                k5_inputs = (hist, nm, dm)
+            else:
+                a = answers[mix][3]                # B over the year, top-8
+                order = (-a.rho).argsort(kind="stable")[:8]
+                check((a.top_sites == order).all(),
+                      f"{backend}: top-k {a.top_sites} != stable order "
+                      f"{order}")
+        row = {"steps": n_steps,
+               "records": nodes * n_steps * chunk,
+               "ingest_ms": ingest_ms,
+               "ingest_ms_pct": percentiles(ingest_ms[1:] or ingest_ms),
+               "records_per_s": nodes * chunk / (
+                   statistics.median(ingest_ms[1:] or ingest_ms) / 1e3),
+               "peak_bytes": peak, "allocated_before_bytes": base}
+        for mix, specs in mixes.items():
+            lat = timed_samples(lambda: svc.query(specs), QUERY_BATCHES,
+                                device)
+            sync(device)
+            t0 = time.perf_counter()
+            tickets = [svc.submit(specs) for _ in range(QUERY_BATCHES)]
+            for t in tickets:
+                svc.wait(t)
+            wall = time.perf_counter() - t0
+            row[f"query_{mix}_ms_pct"] = percentiles(lat)
+            row[f"sustained_{mix}_queries_per_s"] = (
+                len(specs) * QUERY_BATCHES / wall)
+        row["stage_ms"] = serve_stages(svc, cfg, chunk, mixes, device)
+        log("serve", f"{backend}: " + json.dumps(row))
+        if cuda:
+            def window():
+                svc.reset()
+                svc.ingest_chunks(1)
+                svc.query(mixes["mixed"])
+            profile(window, device, top=6)
+        del svc
+    log("serve", "the resident snapshot of every backend equals the "
+                 "streaming engine and the one-shot counting run; every "
+                 "batch launched K5 once and equals its plain version")
+    return k5_at_service_shapes(device, k5_inputs, k5_launches)
+
+
+def serve_stages(svc, cfg, chunk: int, mixes: dict, device) -> dict:
+    """Each layer of one ingest step and one query batch, timed on its
+    own: generating the step's chunks, folding them (the backend's
+    dataflow), the snapshot; encoding a batch on the host, its device work
+    (``batched_query``: K5, the top-k sort, the drill-down gather), and
+    decoding it (the copy to the host)."""
+    from repro_torch.core.streaming import fold_chunk, snapshot, state_init
+    from repro_torch.malgen import generate_chunks
+    from repro_torch.serve import (
+        batched_query,
+        decode_answers,
+        encode_query_batch,
+    )
+
+    stage, box = {}, {}
+
+    def timed(name, key, fn):
+        stage[name] = time_ms(lambda: box.__setitem__(key, fn()), device,
+                              iters=1, warmup=0)
+
+    ids = [d * svc.cpd for d in range(svc.parts)]
+    timed("generate", "chunk",
+          lambda: generate_chunks(svc.seed, cfg, ids, chunk))
+    state = state_init(svc.backend, svc.parts, svc.s_pad, svc.num_weeks,
+                       device)
+    timed("fold", "state", lambda: fold_chunk(
+        state, box["chunk"], backend=svc.backend, s_pad=svc.s_pad,
+        num_weeks=svc.num_weeks, plan=svc.plan))
+    timed("snapshot", "snap", lambda: snapshot(
+        box["state"], backend=svc.backend, s_pad=svc.s_pad,
+        num_weeks=svc.num_weeks))
+    hist = svc.snapshot()[0]
+    for mix, specs in mixes.items():
+        sync(device)
+        t0 = time.perf_counter()
+        batch = encode_query_batch(specs, svc.num_weeks, svc.num_sites)
+        args = [torch.from_numpy(x).to(device) for x in
+                (batch.num_masks, batch.den_masks, batch.sites)]
+        sync(device)
+        stage[f"encode_{mix}"] = (time.perf_counter() - t0) * 1e3
+        timed(f"query_{mix}", "out", lambda: batched_query(
+            hist, *args, max_top_k=batch.max_top_k))
+        t0 = time.perf_counter()
+        decode_answers(batch, box["out"])
+        stage[f"decode_{mix}"] = (time.perf_counter() - t0) * 1e3
+    return stage
+
+
+def k5_at_service_shapes(device, inputs, launches: int) -> dict:
+    """K5 timed on the service's full-width snapshot with the growing batch
+    (N = 52) and the mixed batch's size (N = 9, its first 9 masks)."""
+    from repro_torch.kernels.windowed_ratio import ops as wr
+
+    hist, nm, dm = inputs
+    s, w, _ = hist.shape
+    extra = {}
+
+    def library(nmask, dmask):
+        # one batched f32 matmul of both mask sets with both count columns
+        # (exact below 2^24; the ratio is left out)
+        masks = torch.stack([dmask, nmask]).float()
+        cols = hist.permute(2, 1, 0).float()
+        return lambda: torch.bmm(masks, cols)
+
+    for n in (9, 52):
+        a, b = nm[:n].contiguous(), dm[:n].contiguous()
+        err = k5_exact(f"K5 service shapes N={n}",
+                       wr.masked_window_ratio(hist, a, b),
+                       wr.masked_window_ratio_plain(hist, a, b))
+        timings = dict(
+            ms=time_ms(lambda: wr.masked_window_ratio(hist, a, b), device,
+                       20, 3),
+            plain_ms=time_ms(lambda: wr.masked_window_ratio_plain(
+                hist, a, b), device, 3, 1),
+            library_ms=time_ms(library(a, b), device, 20, 3),
+            bytes=4 * s * w * 2 + 2 * n * w + 12 * n * s,
+            ops=2 * n * s * w, err=err)
+        extra[n] = timings
+    main, mixed = extra[52], extra[9]
+    return kernel_row(
+        "windowed_ratio.masked", launches, main["err"], main["ms"],
+        main["plain_ms"], main["library_ms"], main["bytes"], ops=main["ops"],
+        shape="S=100000 W=52 N=52 (growing)",
+        n9_ms=mixed["ms"], n9_plain_ms=mixed["plain_ms"],
+        n9_library_ms=mixed["library_ms"],
+        n9_bound_ms=max(mixed["bytes"] / HBM_BYTES_PER_S,
+                        mixed["ops"] / OPS32_PER_S) * 1e3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -756,6 +1110,9 @@ def main() -> int:
         del mp["log"], mp["ordered"]
         kernels.append(other_backends(device, NODES, RPS))
         card_equals_cpu(device, NODES, EQ_RPS)
+        k5_edge_cases(device)
+        kernels.append(serving(device, NODES, SERVE_CHUNK, SERVE_STEPS,
+                               SERVE_SMALL_STEPS))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -112,6 +112,22 @@ class EventLog(NamedTuple):
         return self.map(lambda c: c.to(device))
 
 
+class WindowSpec(NamedTuple):
+    """Exposure + monitor window pair (paper Section 3.2, Figure 1), each
+    half-open ``[start, end)`` in seconds since year start. MalStone A uses
+    one pair covering the year; MalStone B a fixed exposure window and
+    monitor windows sharing ``mon_start`` with growing ends."""
+
+    exp_start: int
+    exp_end: int
+    mon_start: int
+    mon_end: int
+
+    @staticmethod
+    def full_year() -> "WindowSpec":
+        return WindowSpec(0, SECONDS_PER_YEAR, 0, SECONDS_PER_YEAR)
+
+
 class SpmResult(NamedTuple):
     """``rho`` (float32) with the integer counts it was divided from."""
 

@@ -1,10 +1,23 @@
 """One front door for the port's MalStone drivers.
 
 Counterpart of ``repro/core/api.py:run``. The source is a flat
-:class:`EventLog` (engine ``"oneshot"``; ``partitioned=True`` leaves the
-result split by site block) or a MalGen ``SeedInfo`` (engine
-``"oneshot"`` or ``"generated"``: the nodes generate their records in
-place). The other engines of the JAX package are not ported yet.
+:class:`EventLog` or a MalGen ``SeedInfo``:
+
+==================== ======== ============================================
+engine               source   routed to (required kwargs)
+==================== ======== ============================================
+oneshot              log      ``malstone_run`` (``malstone_run_partitioned``
+                              with ``partitioned=True``)
+oneshot/generated    seed     ``malstone_run_generated``
+                              (``records_per_shard``)
+streaming            log      ``malstone_run_streaming``
+streaming            seed     ``malstone_run_streaming`` (``num_chunks``; a
+                              seed from ``make_seed_streaming``)
+generated_streaming  seed     ``malstone_run_generated_streaming``
+                              (``records_per_shard``)
+==================== ======== ============================================
+
+``"resumable"`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,8 +29,6 @@ from repro_torch.common.types import EventLog, ExchangePlan
 ENGINES = ("oneshot", "streaming", "generated", "generated_streaming",
            "resumable")
 _UNPORTED_ENGINES = {
-    "streaming": "ROADMAP.md Queue 1, item 4",
-    "generated_streaming": "ROADMAP.md Queue 1, item 4",
     "resumable": "ROADMAP.md Queue 1, item 5",
 }
 
@@ -55,14 +66,21 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
             source, num_sites, nodes=nodes, plan=plan, device=device,
             **kwargs)
     if is_log:
-        if engine == "generated":
+        if engine in ("generated", "generated_streaming"):
             raise ValueError(
-                "engine 'generated' regenerates records on the device and "
-                "needs a MalGen SeedInfo source, not an EventLog")
-        return runner.malstone_run(source, num_sites, nodes=nodes,
-                                   plan=plan, device=device, **kwargs)
+                f"engine {engine!r} regenerates records on the device and "
+                f"needs a MalGen SeedInfo source, not an EventLog")
+        fn = (runner.malstone_run_streaming if engine == "streaming"
+              else runner.malstone_run)
+        return fn(source, num_sites, nodes=nodes, plan=plan, device=device,
+                  **kwargs)
     if cfg is None:
         raise ValueError("a seed source requires cfg= (the MalGenConfig)")
-    return runner.malstone_run_generated(
-        source, cfg, nodes=nodes, num_sites=num_sites, plan=plan,
-        device=device, **kwargs)
+    if engine == "streaming":
+        return runner.malstone_run_streaming(
+            source, num_sites or cfg.num_sites, nodes=nodes, plan=plan,
+            cfg=cfg, device=device, **kwargs)
+    fn = (runner.malstone_run_generated_streaming
+          if engine == "generated_streaming" else runner.malstone_run_generated)
+    return fn(source, cfg, nodes=nodes, num_sites=num_sites, plan=plan,
+              device=device, **kwargs)

@@ -1,11 +1,13 @@
 """MalStone drivers over P nodes held on one device.
 
-Counterpart of the one-shot drivers of ``repro/core/runner.py``:
-``malstone_run`` over a materialized log, ``malstone_run_partitioned``
-(the same, with the result left split by site block) and
-``malstone_run_generated``, where the nodes generate their records in
-place. Each runs any of the four backends (``streams``, ``sphere``,
-``mapreduce``, ``mapreduce_combiner``); the port's default is
+Counterpart of the drivers of ``repro/core/runner.py``: ``malstone_run``
+over a materialized log, ``malstone_run_partitioned`` (the same, with the
+result left split by site block), ``malstone_run_generated``, where the
+nodes generate their records in place, and the chunked streaming drivers
+``malstone_run_streaming`` (over a log, or regenerating chunks from a
+streaming seed) and ``malstone_run_generated_streaming``. Each runs any
+of the four backends (``streams``, ``sphere``, ``mapreduce``,
+``mapreduce_combiner``); the port's default is
 ``mapreduce``, the JAX package's ``streams`` (``sphere`` when
 partitioned). The JAX mesh becomes the ``nodes`` count: a flat log of
 ``nodes * n`` records is node-major, node d holding records ``[d*n,
@@ -229,3 +231,103 @@ def pad_log_to(log: EventLog, target: int) -> EventLog:
         shard_hash=None if log.shard_hash is None
         else padcol(log.shard_hash, fill=PAD_SHARD_HASH),
         valid=padcol(valid, fill=False))
+
+
+def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
+                           backend: str = "mapreduce",
+                           chunk_records: int = 65_536,
+                           statistic: str = "B", cfg=None,
+                           num_chunks: Optional[int] = None,
+                           num_weeks: int = WEEKS_PER_YEAR,
+                           plan: Optional[ExchangePlan] = None, device=None,
+                           return_shuffle_stats: bool = False,
+                           overlap: Optional[bool] = None):
+    """Streaming chunked MalStone (``core.streaming``): the histogram equals
+    ``malstone_run``'s for every backend; mapreduce's ShuffleStats
+    accumulate over the per-chunk shuffles, ``rounds`` being the most any
+    chunk needed.
+
+    - A ``SeedInfo`` from ``make_seed_streaming`` (needs ``cfg`` and
+      ``num_chunks``, which must divide by ``nodes``): every step
+      regenerates its chunks, node d folding chunks ``[d * cpn, (d+1) *
+      cpn)``. Its one-shot oracle is ``malstone_run`` over
+      ``generate_chunked_log(seed, cfg, num_chunks, chunk_records)``.
+    - An ``EventLog`` (flat, node-major): padded with invalid rows so every
+      node folds whole chunks.
+
+    ``overlap`` is not ported (``NotImplementedError``).
+    """
+    from repro_torch.core.streaming import (
+        streaming_histogram_from_log,
+        streaming_histogram_generate,
+    )
+    from repro_torch.malgen.seeding import SeedInfo
+
+    if overlap is not None:
+        raise NotImplementedError(
+            "overlap= pipelines chunk generation with the exchange "
+            "(repro/core/overlap.py), which is not ported yet (ROADMAP.md "
+            "Queue 1, item 4)")
+    _check_backend(backend)
+    if chunk_records < 1:
+        raise ValueError(f"chunk_records must be >= 1, got {chunk_records}")
+    device = nodes_lib.resolve_device(device)
+    plan = plan or ExchangePlan()
+    s_pad = _pad_sites(num_sites, nodes)
+    if isinstance(seed_or_log, SeedInfo):
+        if cfg is None or num_chunks is None:
+            raise ValueError("seed mode requires cfg= and num_chunks=")
+        if num_chunks % nodes:
+            raise ValueError(f"num_chunks ({num_chunks}) must divide over "
+                             f"the {nodes} nodes")
+        hist, stats = streaming_histogram_generate(
+            seed_or_log.to(device), cfg, s_pad, parts=nodes,
+            chunks_per_node=num_chunks // nodes, chunk_records=chunk_records,
+            num_weeks=num_weeks, backend=backend, plan=plan)
+    else:
+        log = seed_or_log
+        per_node = -(-log.num_records // (nodes * chunk_records)) \
+            * chunk_records
+        log = _node_log(pad_log_to(log, per_node * nodes), nodes, device)
+        hist, stats = streaming_histogram_from_log(
+            log, s_pad, chunk_records, num_weeks=num_weeks, backend=backend,
+            plan=plan)
+    _raise_if_exhausted(stats)
+    result = _finalize(hist[:num_sites], statistic)
+    return (result, stats) if return_shuffle_stats else result
+
+
+def malstone_run_generated_streaming(seed, cfg, *, nodes: int,
+                                     records_per_shard: int,
+                                     chunk_records: int = 65_536,
+                                     num_sites: Optional[int] = None,
+                                     statistic: str = "B",
+                                     backend: str = "mapreduce",
+                                     num_weeks: int = WEEKS_PER_YEAR,
+                                     plan: Optional[ExchangePlan] = None,
+                                     device=None,
+                                     return_shuffle_stats: bool = False):
+    """Streaming twin of ``malstone_run_generated``: every node generates
+    its shard in place (``generate_shards_device``), then folds it in
+    chunks. Equal to ``malstone_run_streaming`` over the same shards as a
+    log at the same ``chunk_records``, which must divide
+    ``records_per_shard`` (no padding rows are generated)."""
+    from repro_torch.core.streaming import streaming_histogram_from_log
+    from repro_torch.malgen.generator import generate_shards_device
+
+    _check_backend(backend)
+    if chunk_records < 1 or records_per_shard % chunk_records:
+        raise ValueError(
+            f"records_per_shard ({records_per_shard}) must be divisible by "
+            f"chunk_records ({chunk_records}) on the generated streaming "
+            f"path (no padding rows are generated)")
+    device = nodes_lib.resolve_device(device)
+    num_sites = num_sites or cfg.num_sites
+    log = generate_shards_device(seed, cfg, nodes, records_per_shard,
+                                 device=device)
+    hist, stats = streaming_histogram_from_log(
+        log, _pad_sites(num_sites, nodes), chunk_records,
+        num_weeks=num_weeks, backend=backend, plan=plan)
+    _raise_if_exhausted(stats)
+    result = _finalize(hist[:num_sites], statistic)
+    return (result, stats) if return_shuffle_stats else result

@@ -7,12 +7,14 @@ from repro_torch.kernels.segment_hist.ops import (
     segment_hist,
     segment_hist_packed_words,
 )
+from repro_torch.kernels.windowed_ratio.ops import masked_window_ratio
 
 KERNEL_WRAPPERS = {
     "count_scatter.count": count_tiles,
     "count_scatter.scatter": scatter_tiles,
     "segment_hist.packed": segment_hist_packed_words,
     "segment_hist": segment_hist,
+    "windowed_ratio.masked": masked_window_ratio,
 }
 
 

@@ -10,8 +10,12 @@ The P nodes are a leading axis of tensors on one device (``--device cuda``,
 the default, or ``cpu`` for the plain PyTorch path). ``--gen-device`` fuses
 MalGen into the run: every node generates its shard in place and the timed
 run includes generation; without it the shards are generated once, before
-the timed runs, and the runs start from the materialized log. On the card
-each run is timed with CUDA events and a synchronize.
+the timed runs, and the runs start from the materialized log.
+``--stream-chunks N`` runs the streaming engine: each node folds its
+records in N chunks, regenerated from a streaming seed in every run
+(``engine="streaming"``), or, with ``--gen-device``, cut from the shard it
+generates in place (``engine="generated_streaming"``). On the card each
+run is timed with CUDA events and a synchronize.
 """
 
 from __future__ import annotations
@@ -32,7 +36,12 @@ from repro_torch.common.types import (
 from repro_torch.core import run
 from repro_torch.core.backends import resolve_exchange_impl
 from repro_torch.core.runner import RUN_BACKENDS, _pad_sites
-from repro_torch.malgen import MalGenConfig, generate_shards_device, make_seed
+from repro_torch.malgen import (
+    MalGenConfig,
+    generate_shards_device,
+    make_seed,
+    make_seed_streaming,
+)
 
 
 def _timed(fn, device: torch.device):
@@ -88,10 +97,19 @@ def main(argv=None):
     ap.add_argument("--gen-device", action="store_true",
                     help="generate every node's shard in place inside the"
                          " timed run")
+    ap.add_argument("--stream-chunks", type=int, default=0, metavar="N",
+                    help="stream each node's records in N chunks (0 ="
+                         " one-shot)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be >= 1")
+    if args.stream_chunks < 0 or (
+            args.stream_chunks
+            and args.records_per_node % args.stream_chunks):
+        ap.error("--stream-chunks must divide --records-per-node")
+    chunk = (args.records_per_node // args.stream_chunks
+             if args.stream_chunks else 0)
 
     device = resolve_device(args.device)
     cfg = MalGenConfig(num_sites=args.sites, num_entities=args.entities)
@@ -104,17 +122,35 @@ def main(argv=None):
             else "cpu")
     print(f"device: {kind}; backend: {args.backend}")
 
-    seed, ms = _timed(lambda: make_seed(0, cfg, total, device=device),
-                      device)
+    streaming_seed = args.stream_chunks and not args.gen_device
+    if streaming_seed:
+        num_chunks = args.nodes * args.stream_chunks
+        seed, ms = _timed(lambda: make_seed_streaming(
+            0, cfg, num_chunks, chunk, device=device), device)
+    else:
+        seed, ms = _timed(lambda: make_seed(0, cfg, total, device=device),
+                          device)
     print(f"MalGen seed: {total:,} records ({total * 100 / 1e6:.0f} MB "
           f"logical) over {args.nodes} nodes, seeded in {ms:.1f} ms "
           f"(scatter payload {seed.seed_bytes / 1e6:.1f} MB)")
     kw = dict(nodes=args.nodes, plan=plan, statistic=args.statistic,
               backend=args.backend, device=device, return_shuffle_stats=True)
-    if args.gen_device:
+    if streaming_seed:
+        print(f"  streaming: {args.stream_chunks} chunks of {chunk:,} per "
+              f"node, regenerated in every run")
+
         def fn():
-            return run(seed, engine="generated", cfg=cfg,
-                       records_per_shard=args.records_per_node, **kw)
+            return run(seed, cfg.num_sites, engine="streaming", cfg=cfg,
+                       num_chunks=num_chunks, chunk_records=chunk, **kw)
+    elif args.gen_device:
+        engine = ("generated_streaming" if args.stream_chunks
+                  else "generated")
+        extra = {"chunk_records": chunk} if args.stream_chunks else {}
+
+        def fn():
+            return run(seed, engine=engine, cfg=cfg,
+                       records_per_shard=args.records_per_node, **extra,
+                       **kw)
     else:
         log, ms = _timed(lambda: generate_shards_device(
             seed, cfg, args.nodes, args.records_per_node, device=device),
@@ -133,6 +169,9 @@ def main(argv=None):
         print(f"  run {r + 1}: {ms:.3f} ms "
               f"({total / (ms / 1e3) / 1e6:.1f}M records/s)", flush=True)
     mode = "gen-device" if args.gen_device else "one-shot"
+    if args.stream_chunks:
+        mode = (f"gen-device stream x{args.stream_chunks}" if args.gen_device
+                else f"stream x{args.stream_chunks}")
     print(f"MalStone {args.statistic} [{args.backend}, {mode}] median "
           f"{statistics.median(samples):.3f} ms over {args.runs} runs")
     if stats is not None:

@@ -16,7 +16,7 @@ can hand it the numbers JAX drew and compare the results exactly.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -92,9 +92,15 @@ class EventDraws(NamedTuple):
     timestamp: torch.Tensor
 
 
+# Append new tags at the end only: a stream is seeded by its tag's index,
+# so an insertion would change the records every existing seed gives.
 _STREAM_TAGS = ("site_permutation", "marked_sites", "marked_site",
                 "marked_entity", "marked_ts", "marked_bernoulli",
-                "unmarked_site", "unmarked_entity", "unmarked_ts")
+                "unmarked_site", "unmarked_entity", "unmarked_ts",
+                # the streaming engine's per-chunk streams (shard = chunk id)
+                "chunk_marked_site", "chunk_marked_entity", "chunk_marked_ts",
+                "chunk_marked_bernoulli", "chunk_unmarked_site",
+                "chunk_unmarked_entity", "chunk_unmarked_ts")
 _MASK64 = (1 << 64) - 1
 
 
@@ -119,7 +125,8 @@ def stream_generator(rng_seed: int, tag: str, shard: int,
 
 def draw_events(rng_seed: int, stream: str, shard: int, num: int,
                 cfg: MalGenConfig, device) -> EventDraws:
-    """Draw ``num`` events of ``stream`` ("marked" or "unmarked")."""
+    """Draw ``num`` events of ``stream`` ("marked" or "unmarked", or
+    "chunk_marked" / "chunk_unmarked" with ``shard`` the chunk id)."""
     def gen(field):
         return stream_generator(rng_seed, f"{stream}_{field}", shard, device)
 
@@ -244,3 +251,76 @@ def seed_from_numpy(arrays, cfg: MalGenConfig, rng_seed: int, *,
             or seed.entity_mark_time.numel() != cfg.num_entities):
         raise ValueError("seed tables do not match the MalGenConfig sizes")
     return seed
+
+
+# ---------------------------------------------------------------------------
+# Streaming (chunk-keyed) seeding: the streaming engine's phase 1.
+#
+# Every random stream of a chunk has its own generator, seeded by (rng_seed,
+# tag, chunk id): the JAX package's ``chunk_keys`` split of ``fold_in(key,
+# chunk_id)``. ``make_seed_streaming`` draws each chunk's marked entities,
+# timestamps and Bernoulli trials from the same generators that
+# ``generate_chunk`` draws the chunk's marked rows from, so the mark table
+# corresponds to the marking visits in the records.
+# ---------------------------------------------------------------------------
+
+class ChunkMarkDraws(NamedTuple):
+    """The draws behind one chunk's marked rows that the mark table needs:
+    int32 entity and timestamp, and the bool Bernoulli trial."""
+
+    entity: torch.Tensor
+    timestamp: torch.Tensor
+    bernoulli: torch.Tensor
+
+
+def chunk_marked_records(cfg: MalGenConfig, records_per_chunk: int) -> int:
+    """Marked-site rows per chunk (every chunk gets the same)."""
+    n = int(round(records_per_chunk * cfg.marked_event_fraction))
+    return max(0, min(records_per_chunk, n))
+
+
+def draw_chunk_marks(rng_seed: int, chunk_id: int, num: int,
+                     cfg: MalGenConfig, device) -> ChunkMarkDraws:
+    """The chunk's ``num`` marked visits (from ``generate_chunk``'s
+    generators) and which of them mark the entity."""
+    marked = draw_events(rng_seed, "chunk_marked", chunk_id, num, cfg, device)
+    g = stream_generator(rng_seed, "chunk_marked_bernoulli", chunk_id, device)
+    return ChunkMarkDraws(marked.entity, marked.timestamp,
+                          torch.rand(num, generator=g, device=device)
+                          < cfg.p_mark)
+
+
+def make_seed_streaming(rng_seed: int, cfg: MalGenConfig, num_chunks: int,
+                        records_per_chunk: int, *, device=None,
+                        site_draws: Optional[SiteDraws] = None,
+                        chunk_draws: Optional[Sequence[ChunkMarkDraws]]
+                        = None) -> SeedInfo:
+    """Phase 1 for the streaming engine, in memory bounded by the entity
+    table and one chunk: each chunk's marked visits are drawn in turn and
+    the earliest marking visit per entity is kept. The seed belongs to the
+    log ``generate_chunk`` gives over chunk ids ``[0, num_chunks)`` at
+    this ``records_per_chunk``. The site tables are ``make_seed``'s for the
+    same ``rng_seed``. ``chunk_draws`` (one per chunk) replace the
+    generators' draws. Runs on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
+    weights, marked_mask, marked_cdf, unmarked_cdf = _site_tables(
+        rng_seed, cfg, device, site_draws)
+    n_marked = chunk_marked_records(cfg, records_per_chunk)
+    if chunk_draws is not None and len(chunk_draws) != num_chunks:
+        raise ValueError(f"{len(chunk_draws)} chunk draws for {num_chunks} "
+                         f"chunks")
+    earliest = torch.full((cfg.num_entities,), NEVER_MARKED,
+                          dtype=torch.int32, device=device)
+    for chunk_id in range(num_chunks):
+        draws = (draw_chunk_marks(rng_seed, chunk_id, n_marked, cfg, device)
+                 if chunk_draws is None else chunk_draws[chunk_id])
+        ts = draws.timestamp.to(device)
+        visit_ts = torch.where(draws.bernoulli.to(device), ts,
+                               torch.full_like(ts, NEVER_MARKED))
+        earliest.scatter_reduce_(0, draws.entity.to(device).to(torch.int64),
+                                 visit_ts, "amin")
+    return SeedInfo(rng_seed=rng_seed, marked_mask=marked_mask,
+                    entity_mark_time=_apply_mark_delay(earliest, cfg),
+                    site_weights=weights,
+                    num_marked_events=num_chunks * n_marked,
+                    marked_cdf=marked_cdf, unmarked_cdf=unmarked_cdf)

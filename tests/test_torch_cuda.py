@@ -193,3 +193,77 @@ def test_backends_agree_on_the_card(cuda_device):
                    partitioned=True, device=cuda_device)
         torch.testing.assert_close(part.total.reshape(-1, 52)[:1001].cpu(),
                                    want.total, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,s,high", [(1, 1, 1, 10), (9, 52, 700, 1000),
+                                        (52, 52, 100_000, 1000),
+                                        (57, 65, 1000, 1 << 20),
+                                        (130, 64, 333, 1 << 27)])
+def test_masked_window_ratio_equals_plain(cuda_device, n, w, s, high):
+    from repro_torch.kernels.windowed_ratio import (
+        masked_window_ratio,
+        masked_window_ratio_plain,
+    )
+
+    rng = np.random.default_rng(n * w + s)
+    hist = torch.from_numpy(rng.integers(0, high, size=(s, w, 2),
+                                         dtype=np.int32)).to(cuda_device)
+    nm = torch.from_numpy(rng.random((n, w)) < 0.7).to(cuda_device)
+    dm = torch.from_numpy(rng.random((n, w)) < 0.7).to(cuda_device)
+    dm[0] = False                                   # a zero denominator
+    reset_launch_counts()
+    got = masked_window_ratio(hist, nm, dm)
+    assert launch_counts()["windowed_ratio.masked"] == 1
+    want = masked_window_ratio_plain(hist, nm, dm)
+    torch.testing.assert_close(got[0].view(torch.int32),
+                               want[0].view(torch.int32), rtol=0, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ("streams", "mapreduce"))
+def test_service_on_card_equals_cpu(cuda_device, backend):
+    """Log-mode ingest of one log on the card and on the CPU: the same
+    snapshot, stats and answers; K4 (streams) or K1-K3 (mapreduce) once
+    per ingest step, K5 once per batch."""
+    from repro_torch.malgen import generate_chunked_log, make_seed_streaming
+    from repro_torch.serve import (
+        MalStoneService,
+        default_query_mix,
+        growing_window_specs,
+    )
+
+    cfg = MalGenConfig(num_sites=1000, num_entities=5000)
+    seed = make_seed_streaming(6, cfg, 8, 20_000, device="cpu")
+    log = generate_chunked_log(seed, cfg, 8, 20_000)
+    plan = ExchangePlan(impl="counting", capacity_factor=0.5)
+    services = [MalStoneService(nodes=4, num_sites=1000,
+                                chunk_records=10_000, backend=backend,
+                                plan=plan, device=d)
+                for d in (cuda_device, "cpu")]
+    reset_launch_counts()
+    steps = services[0].ingest_log(log)
+    counts = launch_counts()
+    if backend == "streams":
+        assert counts["segment_hist"] == steps
+    else:
+        assert counts["count_scatter.count"] == steps
+        assert counts["segment_hist.packed"] >= steps
+    services[1].ingest_log(log)
+    (h0, s0), (h1, s1) = (s.snapshot() for s in services)
+    torch.testing.assert_close(h0.cpu(), h1, rtol=0, atol=0)
+    if backend == "mapreduce":
+        assert [int(x) for x in s0] == [int(x) for x in s1]
+    specs = default_query_mix(num_sites=1000) + growing_window_specs()
+    reset_launch_counts()
+    got = services[0].query(specs)
+    assert launch_counts()["windowed_ratio.masked"] == 1
+    for a, b in zip(got, services[1].query(specs)):
+        for f in ("rho", "num", "den", "top_sites", "top_rho"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None)
+            if x is not None:
+                np.testing.assert_array_equal(x.view(np.int32),
+                                              y.view(np.int32))

@@ -64,6 +64,30 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
             call()
 
 
+def test_streaming_and_service_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """The streaming drivers, the streaming seed and the query service run
+    on the card unless device="cpu" is passed; without a card they
+    raise."""
+    from repro_torch.malgen import make_seed_streaming
+    from repro_torch.serve import MalStoneService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = MalGenConfig(num_sites=64, num_entities=128)
+    seed = make_seed_streaming(1, cfg, 4, 64, device="cpu")
+    calls = [
+        lambda: make_seed_streaming(1, cfg, 4, 64),
+        lambda: run(seed, engine="streaming", nodes=2, cfg=cfg,
+                    num_chunks=4, chunk_records=64),
+        lambda: run(make_seed(1, cfg, 256, device="cpu"),
+                    engine="generated_streaming", nodes=2, cfg=cfg,
+                    records_per_shard=128, chunk_records=64),
+        lambda: MalStoneService(nodes=2, num_sites=64, chunk_records=64),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_launcher_runs_a_tiny_job_on_the_cpu():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),

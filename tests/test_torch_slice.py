@@ -299,7 +299,7 @@ def test_plan_and_entry_point_contracts():
     with pytest.raises(ValueError, match="unknown backend"):
         malstone_run(log, 4, nodes=2, backend="hadoop", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        run(log, 4, nodes=2, engine="streaming", device="cpu")
+        run(log, 4, nodes=2, engine="resumable", device="cpu")
     assert resolve_exchange_impl("auto", 1 << 25, 52) == "columns"
     with pytest.raises(ValueError, match="one-word projection"):
         malstone_run(log, 1 << 25, nodes=2, device="cpu",
