@@ -8,7 +8,7 @@
    build time and the ptxas report.
 2. Holds each kernel (K1 count, K2 stable scatter, K3 fused word reducer,
    K4 column histogram) against its plain PyTorch version on the card,
-   exactly, on edge cases.
+   exactly, on edge cases (K5 in phase 7, K6 and K7 in phase 8).
 3. Drives the port's main path once through ``repro_torch.core.run``:
    MalStone B over MalGen records generated on the card (``MalGenConfig()``
    defaults: 100,000 sites, 1,000,000 entities, 52 weeks), 8 nodes x 2^23
@@ -45,6 +45,19 @@
    rho columns. Prints ingest and query latency percentiles, records/s,
    sustained queries/s, peak memory, a profile, and K5 against its plain
    version, a matmul yardstick and its bound.
+8. The bench (``repro_torch.bench``): (a) K6, the power-law sampler, and
+   K7, the MalStone B finalizer, bit-equal to their plain versions on edge
+   cases (K6: S in {1, 7, 2048, 100,000}, n in {1, 1023, 2^23}, ties,
+   runs of equal entries, NaN, +-inf, -0.0; K7: W in {1, 52, 65, 130},
+   zero weeks, sums above 2^24 and past 2^31); (b) the six ``kernel_*``
+   scenarios at n = 2^23, S = 100,000 through ``run_scenarios``, each with
+   the launch counts set to 0 just before it and read just after (K4, K6
+   and K7 launch only in their ``_pallas`` rows), each kernel equal to its
+   plain version on the scenario's inputs, and K6 and K7 timed against
+   their plain versions, a library yardstick and their bounds; (c) the
+   port's ``smoke`` selection (38 scenarios) at the same widths, 8 nodes x
+   2^20 records, into a document that must validate and compare clean
+   against itself; prints its records/s and queries/s.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
@@ -68,10 +81,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM HBM3, NVIDIA data sheet. K1-K4 do a few integer operations per
 # 4-byte element they read, so their operation time at any of the card's
 # ALU rates is far below their byte time: their bound_ms is the byte time
-# (inputs read once, outputs written once) at this rate. K5's integer adds
-# are counted too, at the card's 32-bit rate outside the tensor cores
-# (the data sheet's float32 67 T/s; it gives no separate INT32 rate); its
-# bound is the larger of the two times.
+# (inputs read once, outputs written once) at this rate. K5's integer adds,
+# K6's search steps and K7's adds and divides are counted too, at the
+# card's 32-bit rate outside the tensor cores (the data sheet's float32
+# 67 T/s; it gives no separate INT32 rate); a bound is the larger of the
+# two times.
 HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
 NODES, RPS = 8, 1 << 23            # main path: 67,108,864 records
@@ -79,6 +93,14 @@ EQ_RPS = 1 << 20                   # equality phase: 8,388,608 records
 SERVE_CHUNK, SERVE_STEPS = 1 << 20, 8   # service: 8 x 8 x 2^20 records
 SERVE_SMALL_STEPS = 2                   # sphere and the combiner
 QUERY_BATCHES = 20
+# phase 8: the bench's kernel pairs at the MalGenConfig() widths, then its
+# smoke selection at the same widths and a smaller depth
+BENCH_WIDTHS = dict(num_sites=100_000, num_entities=1_000_000,
+                    marked_event_fraction=0.1, warmup=1)
+BENCH_KERNELS = dict(records_per_node=1 << 23, chunk_records=1 << 20,
+                     iters=5, **BENCH_WIDTHS)
+BENCH_SMOKE = dict(records_per_node=1 << 20, chunk_records=1 << 18,
+                   iters=3, **BENCH_WIDTHS)
 CAPACITY_FACTOR = 2.0
 KERNEL_INFO = {
     "count_scatter.count": (
@@ -96,6 +118,12 @@ KERNEL_INFO = {
     "windowed_ratio.masked": (
         "src/repro_torch/kernels/csrc/windowed_ratio_masked.cu",
         "src/repro/kernels/windowed_ratio/windowed_ratio.py:53"),
+    "powerlaw_sample": (
+        "src/repro_torch/kernels/csrc/powerlaw_sample.cu",
+        "src/repro/kernels/powerlaw_sample/powerlaw_sample.py:32"),
+    "windowed_ratio": (
+        "src/repro_torch/kernels/csrc/windowed_ratio.cu",
+        "src/repro/kernels/windowed_ratio/windowed_ratio.py:29"),
 }
 # the kernels of the counting main path (phase 3)
 MAIN_KERNELS = ("count_scatter.count", "count_scatter.scatter",
@@ -622,7 +650,8 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
             expect = {"segment_hist": rounds, "segment_hist.packed": 0,
                       "count_scatter.count": rounds if blocks else 0,
                       "count_scatter.scatter": rounds if blocks else 0,
-                      "windowed_ratio.masked": 0}
+                      "windowed_ratio.masked": 0, "powerlaw_sample": 0,
+                      "windowed_ratio": 0}
             check(launches == expect, f"{path} {stat}: launches "
                                       f"{launches}, expected {expect}")
         k4_launches[path] = launches["segment_hist"]
@@ -907,7 +936,8 @@ def serving(device, nodes: int, chunk: int, steps: int,
             else:
                 want = {"count_scatter.count": 0, "count_scatter.scatter": 0,
                         "segment_hist.packed": 0, "segment_hist": 1}
-            want["windowed_ratio.masked"] = 0
+            want.update({"windowed_ratio.masked": 0, "powerlaw_sample": 0,
+                         "windowed_ratio": 0})
             check(got == want, f"{backend} ingest step {i}: launches {got}, "
                                f"expected {want}")
 
@@ -1085,6 +1115,188 @@ def k5_at_service_shapes(device, inputs, launches: int) -> dict:
                         mixed["ops"] / OPS32_PER_S) * 1e3)
 
 
+# ------------------------------------------------------------- phase 8
+def k6_case(seed: int, n: int, s: int, device):
+    """A CDF with runs of equal entries (zero-weight sites) and draws on
+    and between its entries, with NaN, +-inf, -0.0, 0.0, 1.0 and 2.0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.rand(s, generator=g)
+    w[torch.rand(s, generator=g) < 0.3] = 0
+    cdf = torch.cumsum(w, 0)
+    cdf = cdf / torch.clamp(cdf[-1], min=1e-30)
+    u = torch.rand(n, generator=g)
+    on = torch.rand(n, generator=g) < 0.3
+    u[on] = cdf[torch.randint(0, s, (int(on.sum()),), generator=g)]
+    edges = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                          0.0, 1.0, 2.0])
+    k = min(n, len(edges))
+    u[torch.randperm(n, generator=g)[:k]] = edges[:k]
+    return u.to(device), cdf.to(device)
+
+
+def k7_outputs(out):
+    """K7's outputs with rho as its bits, for ``exact``."""
+    return (out[0].view(torch.int32), out[1], out[2])
+
+
+def k6_k7_edge_cases(device) -> dict:
+    """K6 at S in {1, 7, 2048, 100,000} and n in {1, 1023, 2^23}; K7 at
+    W in {1, 52, 65, 130}, zero weeks, empty sites, sums above 2^24 and
+    past 2^31 (a wrapped denominator gives rho 0). Both bit-equal to their
+    plain versions. Also whether ``torch.searchsorted`` (K6's library
+    yardstick) gives the same sites on the card, NaN draws included."""
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+    from repro_torch.kernels.windowed_ratio import ops as wr
+
+    library_equal = True
+    count = 0
+    for s in (1, 7, 2048, 100_000):
+        for n in (1, 1023, RPS):
+            u, cdf = k6_case(s * 31 + n, n, s, device)
+            got = ps.powerlaw_sample(u, cdf)
+            exact(f"K6 S={s} n={n}", got, ps.powerlaw_sample_plain(u, cdf))
+            lib = torch.searchsorted(cdf, u, right=True).clamp(0, s - 1)
+            library_equal &= bool(torch.equal(lib.to(torch.int32), got))
+            check(int(got[torch.isnan(u)].ne(s - 1).sum()) == 0,
+                  f"K6 S={s}: a NaN draw did not give S-1")
+            count += 1
+    g = torch.Generator(device="cpu").manual_seed(8)
+    for s, w, high in ((1, 1, 10), (1000, 1, 1000), (100_000, 52, 1000),
+                       (1000, 52, 1 << 20), (1000, 65, 1 << 20),
+                       (333, 130, 1 << 27), (1000, 52, 1 << 27)):
+        hist = torch.randint(0, high, (s, w, 2), generator=g,
+                             dtype=torch.int32)
+        hist[torch.rand(s, generator=g) < 0.2] = 0
+        hist[:, torch.rand(w, generator=g) < 0.2] = 0
+        hist = hist.to(device)
+        got = wr.windowed_ratio(hist)
+        exact(f"K7 S={s} W={w} high={high}", k7_outputs(got),
+              k7_outputs(wr.windowed_ratio_plain(hist)))
+        if high == 1 << 20:
+            check(int(got[1].max()) > 1 << 24, "K7: no sum above 2^24")
+        if high == 1 << 27 and w == 52:
+            wrapped = got[1] <= 0
+            check(bool(wrapped.any()), "K7: no sum wrapped past 2^31")
+            check(not bool(got[0][wrapped].any()),
+                  "K7: rho != 0 where the wrapped denominator is <= 0")
+        count += 1
+    log("kernel", f"K6/K7 bit-equal to plain on {count} cases; "
+                  f"torch.searchsorted equal to K6 on the card: "
+                  f"{library_equal}")
+    return {"k6_library_equal": library_equal}
+
+
+def bench_kernel_pairs(device, edge: dict) -> list:
+    """The six ``kernel_*`` scenarios at full width through
+    ``run_scenarios``, each with the launch counts set to 0 just before it
+    and read just after; each kernel against its plain version on the
+    same inputs; K6 and K7 timed. Returns their kernels-line entries."""
+    from repro_torch.bench import registry, schema
+    from repro_torch.bench.run import run_scenarios
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    scale = registry.Scale(**BENCH_KERNELS)
+    ctx = registry.BenchContext(nodes=NODES, device=device)
+    doc = schema.new_document("torch_kernel_pairs", device=device)
+    launches = {}
+    for kernel in registry.KERNELS:
+        for path in registry.KERNEL_PATHS:
+            name = f"kernel_{kernel}_{path}"
+            sync(device)
+            reset_launch_counts()
+            run_scenarios([name], scale, ctx, doc)
+            sync(device)
+            got = launch_counts()
+            want = dict.fromkeys(got, 0)
+            if path == "pallas":
+                check(got[kernel] > 0, f"{name}: {kernel} not launched")
+                want[kernel] = got[kernel]
+            check(got == want, f"{name}: launches {got}")
+            launches[name] = got[kernel]
+    rows = schema.results_by_scenario(doc)
+    log("bench", "kernel pairs (us/call, records/s): " + json.dumps(
+        {n: (r["us_per_call"], r["records_per_s"]) for n, r in rows.items()}))
+
+    entries = []
+    for kernel in registry.KERNELS:
+        args = registry._kernel_inputs(scale, kernel, device)
+        fast, plain = registry.kernel_fns(kernel, scale)
+        got, want = fast(*args), plain(*args)
+        if kernel == "windowed_ratio":
+            got, want = k7_outputs(got), k7_outputs(want)
+        err = exact(f"{kernel} at the bench's full width", got, want)
+        n_launch = launches[f"kernel_{kernel}_pallas"]
+        bench_us = {p: rows[f"kernel_{kernel}_{p}"]["us_per_call"]
+                    for p in registry.KERNEL_PATHS}
+        if kernel == "powerlaw_sample":
+            u, cdf = args
+            n, s = u.shape[0], cdf.shape[0]
+            entries.append(kernel_row(
+                kernel, n_launch, err,
+                time_ms(lambda: fast(u, cdf), device, 20, 3),
+                time_ms(lambda: plain(u, cdf), device, 10, 2),
+                time_ms(lambda: torch.searchsorted(cdf, u, right=True)
+                        .clamp(0, s - 1), device, 20, 3),
+                4 * n + 4 * n + 4 * s,
+                ops=n * s.bit_length(),    # search steps
+                shape=f"n={n} S={s}", bench_us=bench_us,
+                library_equal_on_card=edge["k6_library_equal"]))
+        elif kernel == "windowed_ratio":
+            (hist,) = args
+            s, w, _ = hist.shape
+            entries.append(kernel_row(
+                kernel, n_launch, err,
+                time_ms(lambda: fast(hist), device, 20, 3),
+                time_ms(lambda: plain(hist), device, 10, 2),
+                time_ms(lambda: torch.cumsum(hist, dim=1,
+                                             dtype=torch.int32),
+                        device, 20, 3),
+                20 * s * w, ops=3 * s * w, shape=f"S={s} W={w}",
+                library="torch.cumsum of both channels, no ratio",
+                bench_us=bench_us))
+        else:
+            log("bench", f"K4 at the bench's [1, {scale.records_per_node}] "
+                         f"uniform columns equals its plain version; "
+                         f"launches {n_launch}, us/call {bench_us}")
+    return entries
+
+
+def bench_smoke(device) -> None:
+    """The port's smoke selection at the full widths and a reduced depth,
+    through ``run_scenarios`` into a document that must validate and
+    compare clean against itself."""
+    import tempfile
+
+    from repro_torch.bench import compare, registry, schema
+    from repro_torch.bench.run import run_scenarios
+
+    scale = registry.Scale(**BENCH_SMOKE)
+    ctx = registry.BenchContext(nodes=NODES, device=device)
+    names = registry.preset_scenario_names("smoke")
+    doc = schema.new_document("torch_smoke_chip", preset="smoke",
+                              device=device)
+    t0 = time.perf_counter()
+    skipped = run_scenarios(names, scale, ctx, doc)
+    wall = time.perf_counter() - t0
+    check(not skipped and len(doc["results"]) == len(names) == 38,
+          f"smoke selection: {len(doc['results'])} rows, skipped {skipped}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        path = schema.write_document(doc, pathlib.Path(tmp) / "BENCH.json")
+        schema.load_document(path)
+        code = compare.main([str(path), str(path)])
+        check(code == 0, f"compare of the smoke document with itself "
+                         f"exited {code}")
+    rates = {r["scenario"]: r.get("records_per_s") for r in doc["results"]}
+    qps = {r["scenario"]: r["derived"]["queries_per_s"]
+           for r in doc["results"]
+           if "queries_per_s" in (r.get("derived") or {})}
+    log("bench", f"smoke: {len(doc['results'])} scenarios in {wall:.1f} s; "
+                 f"the document validates and compares clean against "
+                 f"itself")
+    log("bench", "records/s " + json.dumps(rates))
+    log("bench", "queries/s " + json.dumps(qps))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1113,6 +1325,11 @@ def main() -> int:
         k5_edge_cases(device)
         kernels.append(serving(device, NODES, SERVE_CHUNK, SERVE_STEPS,
                                SERVE_SMALL_STEPS))
+        t8 = time.perf_counter()
+        edge = k6_k7_edge_cases(device)
+        kernels += bench_kernel_pairs(device, edge)
+        bench_smoke(device)
+        log("bench", f"phase 8 took {time.perf_counter() - t8:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

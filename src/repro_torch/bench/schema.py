@@ -1,11 +1,14 @@
 """The ``BENCH_<name>.json`` document of the port: the JAX package's
 schema (``repro/bench/schema.py``), same field names and validator, written
-by the port's launchers.
+by ``repro_torch.bench.run`` and the serve launcher and read by
+``repro_torch.bench.compare``. A document either package writes passes the
+other's validator, so ``compare`` diffs a JAX run against a port run
+scenario by scenario.
 
 The schema's ``jax_version`` field is kept for the compare tools and holds
 ``"n/a"``; ``torch_version`` names the framework that ran. ``platform`` is
-``"gpu"`` or ``"cpu"`` and ``device_count`` counts the CUDA devices (1 on
-the CPU).
+the device the run used, ``"gpu"`` or ``"cpu"``, and ``device_count``
+counts the CUDA devices of a card run (1 for a CPU run).
 """
 
 from __future__ import annotations
@@ -60,7 +63,12 @@ def latency_percentiles(samples_us) -> dict:
 
 
 def repo_root() -> pathlib.Path:
+    """The repo root (where BENCH_*.json files land)."""
     return pathlib.Path(__file__).resolve().parents[3]
+
+
+def bench_path(name: str, root: Optional[pathlib.Path] = None) -> pathlib.Path:
+    return (root or repo_root()) / f"BENCH_{name}.json"
 
 
 def git_sha() -> str:
@@ -73,8 +81,11 @@ def git_sha() -> str:
     return sha if out.returncode == 0 and sha else "unknown"
 
 
-def new_document(name: str, *, env: Optional[dict] = None) -> dict:
-    cuda = torch.cuda.is_available()
+def new_document(name: str, *, device, preset: Optional[str] = None,
+                 env: Optional[dict] = None) -> dict:
+    """An empty document for a run on ``device`` (a ``torch.device`` or
+    its name)."""
+    cuda = torch.device(device).type == "cuda"
     doc = {
         "schema_version": SCHEMA_VERSION, "name": name,
         "created_unix": time.time(), "git_sha": git_sha(),
@@ -83,6 +94,8 @@ def new_document(name: str, *, env: Optional[dict] = None) -> dict:
         "device_count": torch.cuda.device_count() if cuda else 1,
         "results": [],
     }
+    if preset is not None:
+        doc["preset"] = preset
     if env:
         doc["env"] = env
     return doc
@@ -112,30 +125,48 @@ def _check_fields(obj: dict, spec: dict, where: str) -> None:
         if not isinstance(obj[key], typ) or (
                 bool not in allowed and isinstance(obj[key], bool)):
             raise BenchSchemaError(f"{where}: key {key!r} has type "
-                                   f"{type(obj[key]).__name__}")
+                                   f"{type(obj[key]).__name__}, expected "
+                                   f"{typ}")
 
 
 def _check_latency_percentiles(block, where: str) -> None:
-    if not isinstance(block, dict) or set(block) != set(PERCENTILE_KEYS):
-        raise BenchSchemaError(f"{where}: derived.latency_percentiles must "
-                               f"hold exactly {list(PERCENTILE_KEYS)}")
+    if not isinstance(block, dict):
+        raise BenchSchemaError(
+            f"{where}: derived.latency_percentiles must be a dict")
+    extra = set(block) - set(PERCENTILE_KEYS)
+    if extra:
+        raise BenchSchemaError(
+            f"{where}: unknown latency percentile keys {sorted(extra)} "
+            f"(allowed: {list(PERCENTILE_KEYS)})")
     prev = 0.0
     for key in PERCENTILE_KEYS:
+        if key not in block:
+            raise BenchSchemaError(
+                f"{where}: derived.latency_percentiles missing {key!r}")
         val = block[key]
-        if (not isinstance(val, (int, float)) or isinstance(val, bool)
-                or val < prev):
-            raise BenchSchemaError(f"{where}: latency percentiles must be "
-                                   f"non-decreasing numbers >= 0")
+        if not isinstance(val, (int, float)) or isinstance(val, bool) \
+                or val < 0:
+            raise BenchSchemaError(
+                f"{where}: latency percentile {key!r} must be a >= 0 "
+                f"number, got {val!r}")
+        if val < prev:
+            raise BenchSchemaError(
+                f"{where}: latency percentiles must be non-decreasing "
+                f"(p50 <= p95 <= p99); {key}={val} < {prev}")
         prev = float(val)
 
 
 def validate_document(doc: dict) -> None:
-    """Raise ``BenchSchemaError`` unless ``doc`` conforms to the schema."""
+    """Raise ``BenchSchemaError`` unless ``doc`` conforms to the schema
+    (the JAX package's checks, with its messages)."""
     if not isinstance(doc, dict):
         raise BenchSchemaError(f"document is {type(doc).__name__}, not dict")
     _check_fields(doc, _REQUIRED_TOP, "document")
-    if doc["schema_version"] != SCHEMA_VERSION or doc["device_count"] < 1:
-        raise BenchSchemaError("bad schema_version or device_count")
+    if doc["schema_version"] != SCHEMA_VERSION:
+        raise BenchSchemaError(
+            f"schema_version {doc['schema_version']} != {SCHEMA_VERSION}")
+    if doc["device_count"] < 1:
+        raise BenchSchemaError("device_count must be >= 1")
     seen = set()
     for i, res in enumerate(doc["results"]):
         where = f"results[{i}]"
@@ -143,20 +174,52 @@ def validate_document(doc: dict) -> None:
             raise BenchSchemaError(f"{where} is not a dict")
         _check_fields(res, _REQUIRED_RESULT, where)
         if res["scenario"] in seen:
-            raise BenchSchemaError(f"{where}: duplicate scenario")
+            raise BenchSchemaError(
+                f"{where}: duplicate scenario {res['scenario']!r}")
         seen.add(res["scenario"])
-        if (res["us_per_call"] < 0 or res["iters"] < 1
-                or len(res["samples_us"]) != res["iters"]):
-            raise BenchSchemaError(f"{where}: bad timing fields")
+        if res["us_per_call"] < 0:
+            raise BenchSchemaError(f"{where}: negative us_per_call")
+        if res["iters"] < 1:
+            raise BenchSchemaError(f"{where}: iters must be >= 1")
+        if len(res["samples_us"]) != res["iters"]:
+            raise BenchSchemaError(
+                f"{where}: len(samples_us)={len(res['samples_us'])} != "
+                f"iters={res['iters']}")
+        if not all(isinstance(x, (int, float)) and not isinstance(x, bool)
+                   and x >= 0 for x in res["samples_us"]):
+            raise BenchSchemaError(f"{where}: samples_us must be >= 0 numbers")
+        for opt, typ in (("records", int), ("records_per_s", (int, float)),
+                         ("derived", dict)):
+            if opt in res and (not isinstance(res[opt], typ)
+                               or isinstance(res[opt], bool)):
+                raise BenchSchemaError(f"{where}: {opt} has wrong type")
         derived = res.get("derived")
         if isinstance(derived, dict) and "latency_percentiles" in derived:
             _check_latency_percentiles(derived["latency_percentiles"], where)
 
 
-def write_document(doc: dict, path) -> pathlib.Path:
-    """Validate ``doc`` and write it to ``path``."""
+def write_document(doc: dict, path=None) -> pathlib.Path:
+    """Validate ``doc`` and write it to ``path`` (default:
+    ``BENCH_<name>.json`` at the repo root)."""
     validate_document(doc)
-    path = pathlib.Path(path)
+    path = pathlib.Path(path) if path else bench_path(doc["name"])
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(doc, indent=2) + "\n")
     return path
+
+
+def load_document(path) -> dict:
+    """Load and validate a BENCH_*.json document."""
+    p = pathlib.Path(path)
+    try:
+        doc = json.loads(p.read_text())
+    except FileNotFoundError:
+        raise BenchSchemaError(f"no such bench file: {p}") from None
+    except json.JSONDecodeError as e:
+        raise BenchSchemaError(f"{p} is not valid JSON: {e}") from e
+    validate_document(doc)
+    return doc
+
+
+def results_by_scenario(doc: dict) -> dict:
+    return {r["scenario"]: r for r in doc["results"]}

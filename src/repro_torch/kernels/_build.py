@@ -23,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3]
              / "build" / "repro_torch_kernels")
 SOURCES = ("count_scatter", "segment_hist", "segment_hist_packed",
-           "windowed_ratio_masked")
+           "windowed_ratio_masked", "powerlaw_sample", "windowed_ratio")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,16 +1,26 @@
-"""The serving engine's batched query reducer.
+"""The window-ratio kernels: MalStone B's finalizer and the serving
+engine's batched query reducer.
 
-Counterpart of ``repro/kernels/windowed_ratio/ops.py:masked_window_ratio``:
-hist int32 ``[S, W, 2]`` and N numerator / denominator week masks (bool
-``[N, W]``) -> (rho f32, num i32, den i32), each ``[N, S]``: row n answers
-query n over every site. On a CUDA tensor the wrapper launches K5
-(``csrc/windowed_ratio_masked.cu``); on a CPU tensor it runs
-``masked_window_ratio_plain``. Launches are counted in
-``masked_window_ratio.launches``.
+Counterparts of ``repro/kernels/windowed_ratio/ops.py``:
 
-The sums are exact int32 sums (wrapping past 2^31, as the JAX reference's
-int32 contraction does). The JAX Pallas kernel sums in f32 and is exact
-only while a (query, site) count stays under 2^24 (ROADMAP.md Queue 3).
+- ``windowed_ratio`` (JAX ``:22``): hist int32 ``[S, W, 2]`` -> (rho f32,
+  cum_total i32, cum_marked i32), each ``[S, W]``: the running weekly sums
+  of both channels and their ratio. On a CUDA tensor the wrapper launches
+  K7 (``csrc/windowed_ratio.cu``); on a CPU tensor it runs
+  ``windowed_ratio_plain``.
+- ``masked_window_ratio`` (JAX ``:40``): hist int32 ``[S, W, 2]`` and N
+  numerator / denominator week masks (bool ``[N, W]``) -> (rho f32, num
+  i32, den i32), each ``[N, S]``: row n answers query n over every site.
+  On a CUDA tensor the wrapper launches K5
+  (``csrc/windowed_ratio_masked.cu``); on a CPU tensor it runs
+  ``masked_window_ratio_plain``.
+
+Launches are counted in ``windowed_ratio.launches`` and
+``masked_window_ratio.launches``. The sums are exact int32 sums (wrapping
+past 2^31, as the JAX references' int32 cumsum and contraction do). The
+JAX Pallas kernels sum in f32: they are exact only while a count stays
+under 2^24, and ``_kernel``'s cast saturates past 2^31 (ROADMAP.md
+Queue 3).
 """
 
 from __future__ import annotations
@@ -22,8 +32,55 @@ import torch
 
 from repro_torch.common.types import safe_ratio
 from repro_torch.kernels._build import library
+from repro_torch.kernels.windowed_ratio.ref import windowed_ratio_ref
 
 _INT32_MAX = 2**31 - 1
+
+
+@functools.cache
+def _finalize_lib() -> ctypes.CDLL:
+    lib = library("windowed_ratio")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.windowed_ratio.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.windowed_ratio.restype = i32
+    return lib
+
+
+def windowed_ratio_plain(hist: torch.Tensor):
+    """Plain version of K7: ``windowed_ratio_ref``, the two int32
+    ``cumsum``s and ``safe_ratio``."""
+    return windowed_ratio_ref(hist)
+
+
+def windowed_ratio(hist: torch.Tensor):
+    """(rho f32, cum_total i32, cum_marked i32) ``[S, W]`` of ``hist``
+    int32 ``[S, W, 2]`` (contiguous); 1 <= S, W < 2^31."""
+    if hist.dtype != torch.int32 or hist.dim() != 3 or hist.shape[2] != 2:
+        raise ValueError(f"windowed_ratio: hist must be int32 [S, W, 2], "
+                         f"got {hist.dtype} {tuple(hist.shape)}")
+    s, w, _ = hist.shape
+    if min(s, w) < 1 or max(s, w) > _INT32_MAX:
+        raise ValueError(f"windowed_ratio: S={s}, W={w}; each must be in "
+                         f"[1, 2^31)")
+    if not hist.is_contiguous():
+        raise ValueError("windowed_ratio: hist must be contiguous")
+    if hist.device.type != "cuda":
+        return windowed_ratio_plain(hist)
+    rho = torch.empty(s, w, dtype=torch.float32, device=hist.device)
+    cum_total = torch.empty(s, w, dtype=torch.int32, device=hist.device)
+    cum_marked = torch.empty_like(cum_total)
+    windowed_ratio.launches += 1
+    err = _finalize_lib().windowed_ratio(
+        hist.data_ptr(), rho.data_ptr(), cum_total.data_ptr(),
+        cum_marked.data_ptr(), s, w,
+        torch.cuda.current_stream(hist.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"windowed_ratio: CUDA launch failed with error "
+                           f"{err}")
+    return rho, cum_total, cum_marked
+
+
+windowed_ratio.launches = 0
 
 
 @functools.cache

@@ -240,6 +240,7 @@ def main(argv=None) -> int:
                 "exchange_impl": args.exchange_impl, "device": kind}
         doc = schema.new_document(
             pathlib.Path(args.bench_json).stem.removeprefix("BENCH_"),
+            device=device,
             env={"source": "repro_torch.launch.serve_malstone"})
         schema.add_result(
             doc, f"launch_serve_ingest_{args.backend}",

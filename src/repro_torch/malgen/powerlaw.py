@@ -27,6 +27,14 @@ def power_law_weights(num_sites: int, alpha: float = 1.2,
     return w
 
 
+def power_law_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of float32 ``weights``, renormalized so
+    the last entry is 1. Scanned on the CPU for the reason
+    ``masked_site_cdf`` gives, then moved to the weights' device."""
+    cdf = torch.cumsum(weights.to(torch.float32).cpu(), dim=0)
+    return (cdf / cdf[-1]).to(weights.device)
+
+
 def masked_site_cdf(weights: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Normalized inclusive CDF of ``weights`` restricted to ``mask``.

@@ -267,3 +267,62 @@ def test_service_on_card_equals_cpu(cuda_device, backend):
             if x is not None:
                 np.testing.assert_array_equal(x.view(np.int32),
                                               y.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(1, 1), (1023, 7), (70_001, 2048),
+                                 (1 << 20, 100_000)])
+def test_powerlaw_sample_equals_plain(cuda_device, n, s):
+    """K6 on draws on and between CDF entries, runs of equal entries,
+    NaN, +-inf, -0.0 and 1.0; n not a multiple of the block."""
+    from repro_torch.kernels.powerlaw_sample import (
+        powerlaw_sample,
+        powerlaw_sample_plain,
+    )
+
+    rng = np.random.default_rng(n + s)
+    w = rng.random(s).astype(np.float32)
+    w[rng.random(s) < 0.3] = 0                      # repeated entries
+    cdf = np.cumsum(w, dtype=np.float32)
+    cdf /= max(cdf[-1], np.float32(1e-30))
+    u = rng.random(n, dtype=np.float32)
+    on = rng.random(n) < 0.3
+    u[on] = cdf[rng.integers(0, s, int(on.sum()))]
+    edges = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, 2.0],
+                     np.float32)
+    u[rng.integers(0, n, min(n, 7))] = edges[:min(n, 7)]
+    u_d = torch.from_numpy(u).to(cuda_device)
+    cdf_d = torch.from_numpy(cdf).to(cuda_device)
+    reset_launch_counts()
+    got = powerlaw_sample(u_d, cdf_d)
+    assert launch_counts()["powerlaw_sample"] == 1
+    torch.testing.assert_close(got, powerlaw_sample_plain(u_d, cdf_d),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,w,high", [(1, 1, 10), (700, 52, 1000),
+                                      (100_000, 52, 1000),
+                                      (1000, 65, 1 << 20),
+                                      (333, 130, 1 << 27)])
+def test_windowed_ratio_equals_plain(cuda_device, s, w, high):
+    """K7 with zero weeks, empty sites, sums above 2^24 and past 2^31 (a
+    wrapped denominator gives rho 0), and W above its week chunk."""
+    from repro_torch.kernels.windowed_ratio import (
+        windowed_ratio,
+        windowed_ratio_plain,
+    )
+
+    rng = np.random.default_rng(s * w)
+    hist = rng.integers(0, high, size=(s, w, 2), dtype=np.int32)
+    hist[rng.random(s) < 0.2] = 0
+    hist[:, rng.random(w) < 0.2] = 0
+    hist = torch.from_numpy(hist).to(cuda_device)
+    reset_launch_counts()
+    got = windowed_ratio(hist)
+    assert launch_counts()["windowed_ratio"] == 1
+    want = windowed_ratio_plain(hist)
+    torch.testing.assert_close(got[0].view(torch.int32),
+                               want[0].view(torch.int32), rtol=0, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

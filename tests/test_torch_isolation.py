@@ -88,6 +88,24 @@ def test_streaming_and_service_refuse_to_fall_back_to_the_cpu(monkeypatch):
             call()
 
 
+def test_bench_refuses_to_fall_back_to_the_cpu(monkeypatch):
+    """The bench context and its CLI run on the card unless asked for the
+    CPU; without a card they raise."""
+    from repro_torch.bench import registry
+    from repro_torch.bench import run as bench_run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: registry.BenchContext(),
+        lambda: registry.BenchContext(nodes=8, device="cuda"),
+        lambda: bench_run.main(["--scenario",
+                                "kernel_windowed_ratio_pallas"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_launcher_runs_a_tiny_job_on_the_cpu():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
