@@ -8,7 +8,12 @@
    build time and the ptxas report.
 2. Holds each kernel (K1 count, K2 stable scatter, K3 fused word reducer,
    K4 column histogram) against its plain PyTorch version on the card,
-   exactly, on edge cases (K5 in phase 7, K6 and K7 in phase 8).
+   exactly, on edge cases (K5 in phase 7, K6 and K7 in phase 8). K3 and K4
+   also on the cases of their hot-site design at P in {1, 4, 8}: every
+   record on one cell or one site, more hot sites than a tile holds, a
+   hot list that misses every record, empty rows, sites and weeks out of
+   range (and bit-31 words for K3); their hot lists equal the plain
+   selection.
 3. Drives the port's main path once through ``repro_torch.core.run``:
    MalStone B over MalGen records generated on the card (``MalGenConfig()``
    defaults: 100,000 sites, 1,000,000 entities, 52 weeks), 8 nodes x 2^23
@@ -19,7 +24,8 @@
    ``torch.bincount`` over the generated log.
 4. Times each kernel at the main path's shapes against its plain version,
    one library call computing the same function (a yardstick the port
-   never calls) and its byte bound at 3.35 TB/s, after checking it equal.
+   never calls) and its byte bound at 3.35 TB/s, after checking it equal;
+   K3 also over the same records with sites drawn uniformly.
 5. Drives the other backends at the same width, each with the launch
    counts set to 0 just before it and read just after: ``streams``,
    ``sphere`` and ``mapreduce_combiner`` over the same generated records,
@@ -27,8 +33,9 @@
    the same shards as a log. Histograms and the rho bits of A, B and
    B-fixed equal the counting path's; the columns exchange's shuffle stats
    equal its (``bytes_exchanged`` at 17 bytes a slot). Prints each
-   backend's stage times, records/s, peak memory and profile, then times
-   K4 at these shapes as in 4.
+   backend's stage times, records/s, peak memory and profile, then checks
+   and times K4 at these shapes as in 4, over sites drawn uniformly and
+   at a service step's 2^20 records a node.
 6. At 8 x 2^20 records, the card's result equals the port's own CPU run of
    the same log (histogram, rho bits, every ShuffleStats field).
 7. The query service: (a) K5, the masked window-ratio kernel, bit-equal to
@@ -275,8 +282,11 @@ def kernel_edge_cases(device) -> None:
     check(int(hist.sum()) == 2 * int((site % p == torch.arange(p)[:, None])
                                      .sum()), "bit-31 sites were dropped")
     k4 = k4_edge_cases(g, device)
+    hot = hot_site_cases(device)
     log("kernel", f"K1/K2 bit-equal to plain on {len(cases) * 4} edge "
-                  f"cases, K3 on 4, K4 on {k4}")
+                  f"cases, K3 on {4 + hot['K3']}, K4 on {k4 + hot['K4']}; "
+                  f"the hot lists equal their plain version on "
+                  f"{hot['lists']}")
 
 
 def k4_edge_cases(g, device) -> int:
@@ -306,6 +316,131 @@ def k4_edge_cases(g, device) -> int:
                   sh.segment_hist(*cols, **kw),
                   sh.segment_hist_plain(*cols, **kw))
     return 2 * len(cases)
+
+
+HOT_CASES = ("random", "one cell", "one site", "many hot sites",
+             "sample misses", "empty rows")
+
+
+def hist_case(name: str, p: int, n: int, num_sites: int, num_weeks: int,
+              g, owned: bool = False):
+    """K4's columns for one case of the hot-site design, on the CPU:
+    ``random`` has invalid rows, sites and weeks out of range and marks in
+    {-1, 0, 1, 2}; ``one cell`` and ``one site`` put every record on one;
+    ``many hot sites`` spreads valid records evenly over 100 sites (50
+    past 64 weeks), all of them hot at n = 2^22 and more than a tile holds
+    (with ``owned``, row r's sites are r modulo P, as K3's owned words);
+    ``sample misses`` puts every sampled
+    record on one site that no other record has, so the hot list misses
+    almost every record; ``empty rows`` has every other row invalid."""
+    from repro_torch.kernels.segment_hist import ops as sh
+
+    site = torch.randint(-3, num_sites + 3, (p, n), generator=g,
+                         dtype=torch.int32)
+    week = torch.randint(-2, num_weeks + 2, (p, n), generator=g,
+                         dtype=torch.int32)
+    mark = torch.randint(-1, 3, (p, n), generator=g, dtype=torch.int32)
+    valid = torch.rand((p, n), generator=g) < 0.9
+    if name == "one cell":
+        site.fill_(num_sites // 2)
+        week.fill_(num_weeks - 1)
+        valid.fill_(True)
+    elif name == "one site":
+        site.fill_(num_sites // 2)
+    elif name == "many hot sites":
+        site = torch.randint(0, 100 if num_weeks <= 64 else 50, (p, n),
+                             generator=g, dtype=torch.int32)
+        week = torch.randint(0, num_weeks, (p, n), generator=g,
+                             dtype=torch.int32)
+        valid.fill_(True)
+        if owned:
+            site = site * p + torch.arange(p, dtype=torch.int32)[:, None]
+    elif name == "sample misses":
+        site = torch.randint(0, num_sites - 1, (p, n), generator=g,
+                             dtype=torch.int32)
+        sample = min(n, sh.SAMPLE)
+        site[:, torch.arange(sample) * n // sample] = num_sites - 1
+    elif name == "empty rows":
+        valid[1::2] = False
+    return site, week, mark, valid
+
+
+def case_words(cols, p: int, s_local: int):
+    """K3's words from a case's columns: sites folded into [0, P * S_local
+    + 3P) (owned, foreign and out-of-block words), weeks into [0, 64)."""
+    site, week, mark, valid = cols
+    site = site.to(torch.int64) % (p * s_local + 3 * p)
+    week = week.to(torch.int64) % 64
+    words = ((site << 8) | (week << 2) | ((mark > 0).to(torch.int64) << 1)
+             | valid.to(torch.int64))
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def hot_site_cases(device) -> dict:
+    """K3 and K4 bit-equal to their plain versions on every case of
+    ``hist_case`` at P in {1, 4, 8}, n = 2^20 (W = 52; for K4 also W = 130,
+    whose tile holds 39 sites), and with a hot list that names only sites
+    no record has; each hot list equal to its plain version. Returns the
+    number of cases of each."""
+    from repro_torch.kernels.segment_hist import ops as sh
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+    count = {"K3": 0, "K4": 0, "lists": 0}
+    num_sites = 12_500
+    for p in (1, 4, 8):
+        for name in HOT_CASES:
+            n = 1 << (22 if name == "many hot sites" else 20)
+            for weeks in (52, 130):
+                cols = [c.to(device) for c in hist_case(name, p, n, num_sites,
+                                                        weeks, g)]
+                kw = dict(num_sites=num_sites, num_weeks=weeks)
+                what = f"{name} P={p} W={weeks}"
+                exact(f"K4 {what}", sh.segment_hist(*cols, **kw),
+                      sh.segment_hist_plain(*cols, **kw))
+                geo = sh.launch_geometry(cols[0], n, weeks)
+                hot = sh.segment_hist_hot_sites(cols[0], cols[1], cols[3],
+                                                **kw)
+                exact(f"K4 hot list {what}", hot, sh.hot_sites_plain(
+                    sh.record_sites(cols[0], cols[1], cols[3], **kw),
+                    geo.sample, geo.threshold))
+                count["K4"] += 1
+                count["lists"] += 1
+                if name == "many hot sites":
+                    check(int(hot[0, 0]) > geo.hot_capacity
+                          or int(hot[0, 0]) == sh.HOT_SITES,
+                          f"K4 {what}: {int(hot[0, 0])} hot sites listed, "
+                          f"the tile holds {geo.hot_capacity}")
+            absent = torch.full((p, sh.HOT_LIST), -1, dtype=torch.int32)
+            absent[:, 0] = sh.HOT_SITES
+            absent[:, 1:] = num_sites + torch.arange(sh.HOT_SITES)
+            words = case_words(hist_case(name, p, n, num_sites, 52, g,
+                                         owned=True), p, num_sites).to(device)
+            kw = dict(num_sites_local=num_sites, num_partitions=p,
+                      num_weeks=52)
+            want = sh.segment_hist_packed_words_plain(words, **kw)
+            exact(f"K3 {name} P={p}",
+                  sh.segment_hist_packed_words(words, **kw), want)
+            exact(f"K3 {name} P={p}, a hot list of absent sites",
+                  sh.segment_hist_packed_words_tiled(
+                      words, absent.to(device), **kw), want)
+            geo = sh.launch_geometry(words, n, 52)
+            hot = sh.segment_hist_packed_hot_sites(words, **kw)
+            exact(f"K3 hot list {name} P={p}", hot,
+                  sh.hot_sites_plain(sh.word_sites(words, **kw), geo.sample,
+                                     geo.threshold))
+            if name == "many hot sites":
+                check(int(hot[:, 0].min()) == sh.HOT_SITES,
+                      f"K3 {name} P={p}: hot lists {hot[:, 0].tolist()}")
+            cols = [c.to(device) for c in hist_case(name, p, n, num_sites,
+                                                    52, g)]
+            kw = dict(num_sites=num_sites, num_weeks=52)
+            exact(f"K4 {name} P={p}, a hot list of absent sites",
+                  sh.segment_hist_tiled(*cols, absent.to(device), **kw),
+                  sh.segment_hist_plain(*cols, **kw))
+            count["K3"] += 2
+            count["K4"] += 1
+            count["lists"] += 1
+    return count
 
 
 # ------------------------------------------------------------- phase 3
@@ -491,7 +626,7 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
         pack_site_week_mark,
         unpack_site_week_mark,
     )
-    from repro_torch.core.backends.mapreduce import ship_round
+    from repro_torch.core.backends.mapreduce import order_words, ship_round
     from repro_torch.kernels.count_scatter import ops as cs
     from repro_torch.kernels.segment_hist import ops as sh
 
@@ -556,15 +691,35 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
     flat = ((node * s_local + site // p) * WEEKS_PER_YEAR + week).to(
         torch.int64) * 2
     hkeys = torch.cat([flat[own], flat[own & (mark > 0)] + 1])
-    entry("segment_hist.packed", err,
-          time_ms(lambda: sh.segment_hist_packed_words(shipped, **kw),
-                  device, 10, 2),
-          time_ms(lambda: sh.segment_hist_packed_words_plain(shipped, **kw),
-                  device, 2, 1),
-          time_ms(lambda: torch.bincount(
-              hkeys, minlength=p * s_local * WEEKS_PER_YEAR * 2),
-              device, 10, 2),
-          4 * shipped.numel() + 4 * p * s_local * WEEKS_PER_YEAR * 2)
+    del site, week, mark, valid, own, flat
+    # the same records with sites drawn uniformly, ordered and shipped as
+    # the main path does: what the power law's hot sites cost K3
+    uniform_log = lg._replace(site_id=torch.randint(
+        0, mp["cfg"].num_sites, lg.site_id.shape, device=device,
+        dtype=torch.int32))
+    uniform, _ = ship_round(*order_words(uniform_log, WEEKS_PER_YEAR,
+                                         "counting"), 0, mp["capacity"])
+    del uniform_log
+    exact("K3 uniform sites", sh.segment_hist_packed_words(uniform, **kw),
+          sh.segment_hist_packed_words_plain(uniform, **kw))
+    out.append(kernel_row(
+        "segment_hist.packed", mp["launches"]["segment_hist.packed"], err,
+        time_ms(lambda: sh.segment_hist_packed_words(shipped, **kw),
+                device, 10, 2),
+        time_ms(lambda: sh.segment_hist_packed_words_plain(shipped, **kw),
+                device, 2, 1),
+        time_ms(lambda: torch.bincount(
+            hkeys, minlength=p * s_local * WEEKS_PER_YEAR * 2),
+            device, 10, 2),
+        4 * shipped.numel() + 4 * p * s_local * WEEKS_PER_YEAR * 2,
+        hot_sites=sh.segment_hist_packed_hot_sites(shipped, **kw)[:, 0]
+        .tolist(),
+        uniform_sites_ms=time_ms(
+            lambda: sh.segment_hist_packed_words(uniform, **kw), device, 10,
+            2),
+        uniform_sites_plain_ms=time_ms(
+            lambda: sh.segment_hist_packed_words_plain(uniform, **kw),
+            device, 2, 1)))
     return out
 
 
@@ -687,6 +842,12 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
     # hot sites cost K4 and its plain version
     uniform = (torch.randint(0, num_sites, cols[0].shape, device=device,
                              dtype=torch.int32),) + cols[1:]
+    exact("K4 uniform sites", sh.segment_hist(*uniform, **kw),
+          sh.segment_hist_plain(*uniform, **kw))
+    # a service ingest step's chunk: the first 2^20 records of each node
+    chunk = [c[:, :SERVE_CHUNK].contiguous() for c in cols]
+    exact("K4 at 2^20 records a node", sh.segment_hist(*chunk, **kw),
+          sh.segment_hist_plain(*chunk, **kw))
     k4 = kernel_row(
         "segment_hist", sum(k4_launches.values()), err,
         time_ms(lambda: sh.segment_hist(*cols, **kw), device, 10, 2),
@@ -695,10 +856,14 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
             keys, minlength=nodes * s_pad * weeks * 2), device, 10, 2),
         13 * total + 4 * nodes * s_pad * weeks * 2,
         launches_by_path=k4_launches,
+        hot_sites=sh.segment_hist_hot_sites(cols[0], cols[1], cols[3], **kw)
+        [:, 0].tolist(),
         uniform_sites_ms=time_ms(lambda: sh.segment_hist(*uniform, **kw),
                                  device, 10, 2),
         uniform_sites_plain_ms=time_ms(
-            lambda: sh.segment_hist_plain(*uniform, **kw), device, 2, 1))
+            lambda: sh.segment_hist_plain(*uniform, **kw), device, 2, 1),
+        chunk_2_20_ms=time_ms(lambda: sh.segment_hist(*chunk, **kw), device,
+                              10, 2))
     return k4
 
 

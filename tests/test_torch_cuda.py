@@ -16,6 +16,7 @@ from repro_torch.common.types import ExchangePlan
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.count_scatter import ops as cs
 from repro_torch.kernels.count_scatter import count_scatter_ref
+from repro_torch.kernels.segment_hist import ops as segment_hist_ops
 from repro_torch.kernels.segment_hist import (
     segment_hist,
     segment_hist_packed_words,
@@ -326,3 +327,157 @@ def test_windowed_ratio_equals_plain(cuda_device, s, w, high):
                                want[0].view(torch.int32), rtol=0, atol=0)
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+HOT_CASES = ("random", "one cell", "one site", "many hot sites",
+             "sample misses", "empty rows")
+
+
+def _hist_case(name, p, n, num_sites, num_weeks, seed, owned=False):
+    """K4's columns for one case of K3's and K4's hot-site design:
+    ``random`` has invalid rows, sites and weeks out of range and marks in
+    {-1, 0, 1, 2}; ``one cell`` and ``one site`` put every record on one;
+    ``many hot sites`` spreads valid records evenly over 100 sites (50 past
+    64 weeks), all hot at n = 2^22 and more than a tile holds (``owned``:
+    row r's sites are r modulo P); ``sample misses`` puts every sampled
+    record on a site no other record has; ``empty rows`` has every other
+    row invalid."""
+    rng = np.random.default_rng(seed)
+    site = rng.integers(-3, num_sites + 3, size=(p, n))
+    week = rng.integers(-2, num_weeks + 2, size=(p, n))
+    mark = rng.integers(-1, 3, size=(p, n))
+    valid = rng.random((p, n)) < 0.9
+    if name == "one cell":
+        site[:], week[:], valid[:] = num_sites // 2, num_weeks - 1, True
+    elif name == "one site":
+        site[:] = num_sites // 2
+    elif name == "many hot sites":
+        site = rng.integers(0, 100 if num_weeks <= 64 else 50, size=(p, n))
+        if owned:
+            site = site * p + np.arange(p)[:, None]
+        week = rng.integers(0, num_weeks, size=(p, n))
+        valid[:] = True
+    elif name == "sample misses":
+        site = rng.integers(0, num_sites - 1, size=(p, n))
+        sample = min(n, segment_hist_ops.SAMPLE)
+        site[:, np.arange(sample) * n // sample] = num_sites - 1
+    elif name == "empty rows":
+        valid[1::2] = False
+    return [torch.from_numpy(c.astype(np.int32)) for c in (site, week, mark)
+            ] + [torch.from_numpy(valid)]
+
+
+def _case_words(cols, p, s_local):
+    """K3's words from a case's columns: sites folded into [0, P * S_local
+    + 3P), weeks into [0, 64)."""
+    site, week, mark, valid = (c.to(torch.int64) for c in cols)
+    words = (((site % (p * s_local + 3 * p)) << 8) | ((week % 64) << 2)
+             | ((mark > 0).to(torch.int64) << 1) | valid)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HOT_CASES)
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_hist_kernels_equal_plain_on_hot_site_cases(cuda_device, p, name):
+    """K4 (W = 52, and W = 130, whose tile holds 39 sites) and K3 equal
+    their plain versions, also with a hot list of absent sites; their hot
+    lists equal the plain selection; one launch per call."""
+    sh = segment_hist_ops
+    n, num_sites = 1 << (22 if name == "many hot sites" else 20), 12_500
+    for weeks in (52, 130):
+        cols = [c.to(cuda_device) for c in _hist_case(name, p, n, num_sites,
+                                                       weeks, p + weeks)]
+        kw = dict(num_sites=num_sites, num_weeks=weeks)
+        reset_launch_counts()
+        got = segment_hist(*cols, **kw)
+        assert launch_counts()["segment_hist"] == 1
+        torch.testing.assert_close(got, segment_hist_plain(*cols, **kw),
+                                   rtol=0, atol=0)
+        geo = sh.launch_geometry(cols[0], n, weeks)
+        hot = sh.segment_hist_hot_sites(cols[0], cols[1], cols[3], **kw)
+        torch.testing.assert_close(hot, sh.hot_sites_plain(
+            sh.record_sites(cols[0], cols[1], cols[3], **kw), geo.sample,
+            geo.threshold), rtol=0, atol=0)
+        if name == "many hot sites":
+            assert (int(hot[0, 0]) > geo.hot_capacity
+                    or int(hot[0, 0]) == sh.HOT_SITES)
+    absent = torch.full((p, sh.HOT_LIST), -1, dtype=torch.int32)
+    absent[:, 0] = sh.HOT_SITES
+    absent[:, 1:] = num_sites + torch.arange(sh.HOT_SITES)
+    absent = absent.to(cuda_device)
+    torch.testing.assert_close(
+        sh.segment_hist_tiled(*cols, absent, num_sites=num_sites,
+                              num_weeks=130),
+        segment_hist_plain(*cols, num_sites=num_sites, num_weeks=130),
+        rtol=0, atol=0)
+    words = _case_words(_hist_case(name, p, n, num_sites, 52, p, owned=True),
+                        p, num_sites).to(cuda_device)
+    kw = dict(num_sites_local=num_sites, num_partitions=p, num_weeks=52)
+    want = segment_hist_packed_words_plain(words, **kw)
+    reset_launch_counts()
+    torch.testing.assert_close(segment_hist_packed_words(words, **kw), want,
+                               rtol=0, atol=0)
+    assert launch_counts()["segment_hist.packed"] == 1
+    torch.testing.assert_close(
+        sh.segment_hist_packed_words_tiled(words, absent, **kw), want,
+        rtol=0, atol=0)
+    geo = sh.launch_geometry(words, n, 52)
+    hot = sh.segment_hist_packed_hot_sites(words, **kw)
+    torch.testing.assert_close(hot, sh.hot_sites_plain(
+        sh.word_sites(words, **kw), geo.sample, geo.threshold), rtol=0,
+        atol=0)
+    if name == "many hot sites":
+        assert int(hot[:, 0].min()) == sh.HOT_SITES
+
+
+@pytest.mark.cuda
+def test_packed_hist_counts_owned_bit_31_sites(cuda_device):
+    """Sites at 2^23 and above set bit 31 of the word; they unpack as
+    unsigned and count in the row that owns them."""
+    p, s_local = 2, 1 << 23
+    site = torch.from_numpy(np.random.default_rng(31).integers(
+        (1 << 24) - 64, 1 << 24, size=(p, 4000)))
+    words = (site << 8) | 3
+    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    kw = dict(num_sites_local=s_local, num_partitions=p, num_weeks=1)
+    got = segment_hist_packed_words(words.to(cuda_device), **kw)
+    torch.testing.assert_close(got.cpu(), segment_hist_packed_words_plain(
+        words, **kw), rtol=0, atol=0)
+    assert int(got.sum()) == 2 * int((site % p == torch.arange(p)[:, None])
+                                     .sum())
+
+
+@pytest.mark.cuda
+def test_hist_kernels_on_malgen_at_the_main_shapes(cuda_device):
+    """K4 over 8 x 2^23 MalGen records, over the same columns with sites
+    drawn uniformly and over a service step's 2^20 records a node; K3 over
+    round 0's shipped words of both: each equal to its plain version."""
+    from repro_torch.core.backends.mapreduce import (
+        order_words,
+        ship_round,
+        static_capacity,
+    )
+
+    cfg = MalGenConfig()
+    p, rps = 8, 1 << 23
+    seed = make_seed(0, cfg, p * rps, device=cuda_device)
+    log = generate_shards_device(seed, cfg, p, rps, device=cuda_device)
+    s_pad = -(-cfg.num_sites // p) * p
+    uniform = log._replace(site_id=torch.randint(
+        0, cfg.num_sites, log.site_id.shape, device=cuda_device,
+        dtype=torch.int32))
+    kw = dict(num_sites=s_pad, num_weeks=52)
+    kw3 = dict(num_sites_local=s_pad // p, num_partitions=p, num_weeks=52)
+    for lg in (log, uniform):
+        for cut in (rps, 1 << 20):
+            cols = [c[:, :cut].contiguous() for c in (
+                lg.site_id, lg.week(), lg.mark, lg.valid_mask())]
+            torch.testing.assert_close(segment_hist(*cols, **kw),
+                                       segment_hist_plain(*cols, **kw),
+                                       rtol=0, atol=0)
+        shipped, _ = ship_round(*order_words(lg, 52, "counting"), 0,
+                                static_capacity(rps, p, 2.0))
+        torch.testing.assert_close(
+            segment_hist_packed_words(shipped, **kw3),
+            segment_hist_packed_words_plain(shipped, **kw3), rtol=0, atol=0)
