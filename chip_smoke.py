@@ -8,7 +8,11 @@
    build time and the ptxas report.
 2. Holds each kernel (K1 count, K2 stable scatter, K3 fused word reducer,
    K4 column histogram) against its plain PyTorch version on the card,
-   exactly, on edge cases (K5 in phase 7, K6 and K7 in phase 8). K3 and K4
+   exactly, on edge cases (K5 in phase 7, K6 and K7 in phase 8). K1 and K2
+   at D in {1, 2, 9, 257, 1025} destinations, rows ragged across their
+   4,096-record tile, rows of a length that is no multiple of 4, every
+   record on one destination, invalid rows and destinations out of
+   range. K3 and K4
    also on the cases of their hot-site design at P in {1, 4, 8}: every
    record on one cell or one site, more hot sites than a tile holds, a
    hot list that misses every record, empty rows, sites and weeks out of
@@ -25,7 +29,10 @@
 4. Times each kernel at the main path's shapes against its plain version,
    one library call computing the same function (a yardstick the port
    never calls) and its byte bound at 3.35 TB/s, after checking it equal;
-   K3 also over the same records with sites drawn uniformly.
+   K3 also over the same records with sites drawn uniformly; K1 and K2
+   also beside their first design (``tools/first_designs.py``, a tile of
+   1,024 records) on the same records, K2 also as a CUDA graph (no host
+   work) and cold (after its inputs were evicted from the L2).
 5. Drives the other backends at the same width, each with the launch
    counts set to 0 just before it and read just after: ``streams``,
    ``sphere`` and ``mapreduce_combiner`` over the same generated records,
@@ -39,8 +46,10 @@
 6. At 8 x 2^20 records, the card's result equals the port's own CPU run of
    the same log (histogram, rho bits, every ShuffleStats field).
 7. The query service: (a) K5, the masked window-ratio kernel, bit-equal to
-   its plain version on edge cases (N, W and S sweeps, zero denominators,
-   counts above 2^24); (b) ``MalStoneService`` at full width, each backend
+   its plain version on edge cases (N, W and S sweeps; every mask shape:
+   none, one run at either end, all weeks, alternating weeks, a window,
+   random, at N up to 129; zero denominators; counts above 2^24 and past
+   2^31); (b) ``MalStoneService`` at full width, each backend
    with the launch counts set to 0 just before it is driven and read just
    after: ``streams`` and ``mapreduce`` (counting exchange) fold 8 ingest
    steps of 8 x 2^20 records from a streaming seed, ``sphere`` and
@@ -51,7 +60,9 @@
    its plain version, and the 52 growing B answers equal ``malstone_b``'s
    rho columns. Prints ingest and query latency percentiles, records/s,
    sustained queries/s, peak memory, a profile, and K5 against its plain
-   version, a matmul yardstick and its bound.
+   version, its first design, a matmul yardstick and its bound, at N = 52,
+   N = 9 and over 52 alternating-week masks (the worst shape): on the
+   device (a CUDA graph), with the wrapper's host work, and cold.
 8. The bench (``repro_torch.bench``): (a) K6, the power-law sampler, and
    K7, the MalStone B finalizer, bit-equal to their plain versions on edge
    cases (K6: S in {1, 7, 2048, 100,000}, n in {1, 1023, 2^23}, ties,
@@ -177,6 +188,63 @@ def time_ms(fn, device, iters: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, device, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in
+    one CUDA graph and replayed, so that no host work is timed (the best
+    of three replays). The port runs eagerly; this is a kernel's time
+    without its wrapper's Python."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize(device)
+        best = min(best, start.elapsed_time(end) / iters)
+    del graph
+    return best
+
+
+def cold_ms(fn, device, calls: int = 5) -> float:
+    """Median milliseconds of single calls of ``fn``, each timed alone with
+    CUDA events right after a write of 256 MB has evicted its inputs from
+    the card's 50 MB L2."""
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    fn()
+    out = []
+    for _ in range(calls):
+        scratch.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def first_designs():
+    """``tools/first_designs.py``: the first designs of K2 and K5, the
+    yardsticks timed beside them (built with the port's flags)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import first_designs as fd
+
+    return fd
+
+
 def exact(name: str, got, want) -> float:
     """Require bit equality; return the max absolute difference (0)."""
     got = got if isinstance(got, (tuple, list)) else (got,)
@@ -239,8 +307,14 @@ def kernel_edge_cases(device) -> None:
     from repro_torch.kernels.segment_hist import ops as sh
 
     g = torch.Generator(device="cpu").manual_seed(7)
+    # (rows, n, P): D = P + 1 destinations; rows ragged across the tile,
+    # and rows whose length is no multiple of 4 (16-byte loads only where
+    # a row is aligned)
+    tile = cs.TILE
     cases = [(1, 1000, 3), (1, 100, 4), (2, 5000, 1), (3, 70_000, 3),
-             (4, 4 * cs.TILE, 4), (8, 100_000, 8), (2, 30_000, 16)]
+             (4, 4 * tile, 4), (8, 100_000, 8), (2, 30_000, 16),
+             (1, tile - 1, 0), (2, tile + 1, 1), (3, 3 * tile + 77, 8),
+             (2, 2 * tile + 5, 256), (3, 3 * tile + 77, 1024)]
     for rows, n, p in cases:
         dest = torch.randint(0, p + 1, (rows, n), generator=g,
                              dtype=torch.int32)
@@ -251,12 +325,17 @@ def kernel_edge_cases(device) -> None:
                     "pseudo dest": torch.full_like(dest, p)}
         invalid = torch.rand((rows, n), generator=g) < 0.3
         variants["invalid rows"] = torch.where(invalid, p, dest)
+        # K1/K2 only: destinations outside [0, P] land nowhere
+        k = torch.randint(0, 7, (rows, n), generator=g, dtype=torch.int32)
+        variants["out of range"] = torch.where(
+            invalid, torch.where(k % 2 == 0, -1 - k, p + 1 + k), dest)
         for name, d in variants.items():
             w = torch.where(invalid, 0, words) if name == "invalid rows" \
                 else words
             w, d = w.to(device), d.to(device)
-            exact(f"count_scatter {name} rows={rows} n={n} P={p}",
-                  cs.count_scatter(w, d, p), count_scatter_ref(w, d, p))
+            if name != "out of range":
+                exact(f"count_scatter {name} rows={rows} n={n} P={p}",
+                      cs.count_scatter(w, d, p), count_scatter_ref(w, d, p))
             counts = cs.count_tiles(d, p + 1)
             exact(f"count_tiles {name} n={n} P={p}", counts,
                   cs.count_tiles_plain(d, p + 1))
@@ -283,7 +362,7 @@ def kernel_edge_cases(device) -> None:
                                      .sum()), "bit-31 sites were dropped")
     k4 = k4_edge_cases(g, device)
     hot = hot_site_cases(device)
-    log("kernel", f"K1/K2 bit-equal to plain on {len(cases) * 4} edge "
+    log("kernel", f"K1/K2 bit-equal to plain on {len(cases) * 5} edge "
                   f"cases, K3 on {4 + hot['K3']}, K4 on {k4 + hot['K4']}; "
                   f"the hot lists equal their plain version on "
                   f"{hot['lists']}")
@@ -640,10 +719,6 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
     t = cs.num_tiles(n)
     out = []
 
-    def entry(name, err, ms, plain_ms, library_ms, bytes_moved):
-        out.append(kernel_row(name, mp["launches"][name], err, ms, plain_ms,
-                              library_ms, bytes_moved))
-
     # K1: per-tile destination histogram of the main path's destinations
     counts = cs.count_tiles(dest, num_dests)
     err = exact("K1 main shapes", counts, cs.count_tiles_plain(dest,
@@ -651,13 +726,21 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
     tile = torch.arange(n, device=device) // cs.TILE
     node = torch.arange(p, device=device).unsqueeze(1)
     keys = ((node * t + tile) * num_dests + dest).reshape(-1)
-    entry("count_scatter.count", err,
-          time_ms(lambda: cs.count_tiles(dest, num_dests), device, 10, 2),
-          time_ms(lambda: cs.count_tiles_plain(dest, num_dests), device,
-                  2, 1),
-          time_ms(lambda: torch.bincount(keys, minlength=p * t * num_dests),
-                  device, 10, 2),
-          4 * p * n + 4 * p * t * num_dests)
+    fd = first_designs()
+    out.append(kernel_row(
+        "count_scatter.count", mp["launches"]["count_scatter.count"], err,
+        time_ms(lambda: cs.count_tiles(dest, num_dests), device, 10, 2),
+        time_ms(lambda: cs.count_tiles_plain(dest, num_dests), device, 2,
+                1),
+        time_ms(lambda: torch.bincount(keys, minlength=p * t * num_dests),
+                device, 10, 2),
+        4 * p * n + 4 * p * t * num_dests, tile=cs.TILE,
+        graph_ms=graph_ms(lambda: cs.count_tiles(dest, num_dests), device),
+        first_design_tile=fd.TILE,
+        first_design_ms=time_ms(lambda: fd.count_tiles(dest, num_dests),
+                                device, 10, 2),
+        tile_bases_ms=time_ms(lambda: cs.tile_bases(counts), device, 10,
+                              2)))
     del tile, keys
 
     # K2: the stable scatter, given the bases K1's counts give
@@ -671,13 +754,24 @@ def kernels_at_main_shapes(device, mp: dict) -> list:
         order = torch.sort(dest, dim=1, stable=True).indices
         return words.gather(1, order)
 
-    entry("count_scatter.scatter", err,
-          time_ms(lambda: cs.scatter_tiles(words, dest, base), device, 10, 2),
-          time_ms(lambda: cs.scatter_tiles_plain(words, dest, base), device,
-                  2, 1),
-          time_ms(library_sort, device, 5, 1),
-          4 * p * n * 3 + 4 * p * t * num_dests)
-    del got, base, counts
+    # the first design (tile of 1,024 records) on the same records
+    fbase = fd.tile_bases(fd.count_tiles(dest, num_dests))
+    exact("K2 first design", fd.scatter_tiles(words, dest, fbase), got)
+    out.append(kernel_row(
+        "count_scatter.scatter", mp["launches"]["count_scatter.scatter"],
+        err,
+        time_ms(lambda: cs.scatter_tiles(words, dest, base), device, 10, 2),
+        time_ms(lambda: cs.scatter_tiles_plain(words, dest, base), device,
+                2, 1),
+        time_ms(library_sort, device, 5, 1),
+        4 * p * n * 3 + 4 * p * t * num_dests,
+        graph_ms=graph_ms(lambda: cs.scatter_tiles(words, dest, base),
+                          device),
+        cold_ms=cold_ms(lambda: cs.scatter_tiles(words, dest, base),
+                        device),
+        first_design_ms=time_ms(lambda: fd.scatter_tiles(words, dest, fbase),
+                                device, 10, 2)))
+    del got, base, counts, fbase
 
     # K3: round 0's shipped words, reduced per receiving node
     shipped, _ = ship_round(words_sorted, starts, 0, mp["capacity"])
@@ -972,11 +1066,38 @@ def k5_exact(name: str, got, want) -> float:
                  (want[0].view(torch.int32), want[1], want[2]))
 
 
+K5_MASK_KINDS = ("none", "first", "last", "all", "alternating", "window",
+                 "random")
+
+
+def k5_masks(kind: str, n: int, w: int, g) -> torch.Tensor:
+    """N masks of one shape (on the CPU): no week; one run from the first
+    week or to the last; every week; alternating weeks (both phases, 26
+    runs at W = 52); one run anywhere; or each week at random."""
+    weeks = torch.arange(w)[None, :]
+    k = torch.randint(0, w + 1, (n, 1), generator=g)
+    if kind == "none":
+        return torch.zeros(n, w, dtype=torch.bool)
+    if kind == "first":
+        return weeks < k.clamp(min=1)
+    if kind == "last":
+        return weeks >= k.clamp(max=w - 1)
+    if kind == "all":
+        return torch.ones(n, w, dtype=torch.bool)
+    if kind == "alternating":
+        return (weeks + torch.arange(n)[:, None]) % 2 == 0
+    if kind == "window":
+        a = torch.randint(0, w, (n, 1), generator=g)
+        return (weeks >= a) & (weeks < a + 1 + k % (w - a))
+    return torch.rand((n, w), generator=g) < 0.5
+
+
 def k5_edge_cases(device) -> int:
     """K5 over N in {1, 9, 52, 57}, W in {1, 52, 64, 65} and S in {1, 700,
-    1000} (1000 is no multiple of the 128-site block), all-zero
-    denominators, and sums above 2^24 and past 2^31 (int32 wrap). Returns
-    the number of cases."""
+    1000} (1000 is no multiple of the 64-site tile), every mask shape at N
+    in {1, 9, 52, 57, 129} (129: three query blocks) and the same W, S =
+    1000, all-zero denominators, and sums above 2^24 and past 2^31 (int32
+    wrap). Returns the number of cases."""
     from repro_torch.kernels.windowed_ratio import ops as wr
 
     count = 0
@@ -987,6 +1108,17 @@ def k5_edge_cases(device) -> int:
                 k5_exact(f"K5 N={n} W={w} S={s}",
                          wr.masked_window_ratio(*args),
                          wr.masked_window_ratio_plain(*args))
+                count += 1
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for n in (1, 9, 52, 57, 129):
+        for w in (1, 52, 64, 65):
+            hist = k5_case(n + w, 1, w, 1000, device)[0]
+            for kind in K5_MASK_KINDS:
+                nm = k5_masks(kind, n, w, g).to(device)
+                dm = k5_masks(kind, n, w, g).to(device)
+                k5_exact(f"K5 {kind} N={n} W={w} S=1000",
+                         wr.masked_window_ratio(hist, nm, dm),
+                         wr.masked_window_ratio_plain(hist, nm, dm))
                 count += 1
     hist, nm, _ = k5_case(1, 57, 52, 700, device)
     zero = torch.zeros_like(nm)
@@ -1001,6 +1133,12 @@ def k5_edge_cases(device) -> int:
         k5_exact(f"K5 sums {name}", got,
                  wr.masked_window_ratio_plain(hist, nm, dm))
         check(int(got[1].max()) > 1 << 24, f"K5 {name}: no sum above 2^24")
+        for kind in ("alternating", "last"):
+            m = k5_masks(kind, 52, 65, g).to(device)
+            k5_exact(f"K5 sums {name}, {kind} masks",
+                     wr.masked_window_ratio(hist, m, m),
+                     wr.masked_window_ratio_plain(hist, m, m))
+            count += 1
     check(int(got[1].min()) < 0, "K5 past 2^31: no sum wrapped")
     count += 3
     log("kernel", f"K5 bit-equal to plain on {count} cases")
@@ -1241,11 +1379,19 @@ def serve_stages(svc, cfg, chunk: int, mixes: dict, device) -> dict:
 
 def k5_at_service_shapes(device, inputs, launches: int) -> dict:
     """K5 timed on the service's full-width snapshot with the growing batch
-    (N = 52) and the mixed batch's size (N = 9, its first 9 masks)."""
+    (N = 52), the mixed batch's size (N = 9, its first 9 masks) and 52
+    alternating-week masks (26 runs each, the worst shape): on the device
+    (calls replayed as a CUDA graph), with the wrapper's host work and
+    cold (each call after the 41.6 MB snapshot was evicted from the L2),
+    beside the first design and a matmul yardstick in the same call."""
     from repro_torch.kernels.windowed_ratio import ops as wr
 
+    fd = first_designs()
     hist, nm, dm = inputs
     s, w, _ = hist.shape
+    weeks = torch.arange(w, device=hist.device)
+    alt = ((weeks[None, :] + torch.arange(52, device=hist.device)[:, None])
+           % 2 == 0).contiguous()
     extra = {}
 
     def library(nmask, dmask):
@@ -1255,29 +1401,45 @@ def k5_at_service_shapes(device, inputs, launches: int) -> dict:
         cols = hist.permute(2, 1, 0).float()
         return lambda: torch.bmm(masks, cols)
 
-    for n in (9, 52):
-        a, b = nm[:n].contiguous(), dm[:n].contiguous()
-        err = k5_exact(f"K5 service shapes N={n}",
-                       wr.masked_window_ratio(hist, a, b),
+    for key, a, b in (("n52", nm, dm), ("n9", nm[:9].contiguous(),
+                                        dm[:9].contiguous()),
+                      ("alternating", alt, alt)):
+        n = a.shape[0]
+        got = wr.masked_window_ratio(hist, a, b)
+        err = k5_exact(f"K5 service shapes {key}", got,
                        wr.masked_window_ratio_plain(hist, a, b))
-        timings = dict(
-            ms=time_ms(lambda: wr.masked_window_ratio(hist, a, b), device,
-                       20, 3),
+        k5_exact(f"K5 first design {key}", fd.masked_window_ratio(hist, a, b),
+                 got)
+        runs = sum(int(((m[:, 1:] != m[:, :-1]).sum() + m[:, 0].sum()
+                        + m[:, -1].sum()) // 2) for m in (a, b))
+        # ms: the device's time (a CUDA graph of the calls); a call's host
+        # work (checks, allocations, two launches) is 40-70 us, so events
+        # around repeated wrapper calls (wrapper_ms) time the host at N = 9
+        extra[key] = dict(
+            ms=graph_ms(lambda: wr.masked_window_ratio(hist, a, b), device),
+            wrapper_ms=time_ms(lambda: wr.masked_window_ratio(hist, a, b),
+                               device, 20, 3),
+            cold_ms=cold_ms(lambda: wr.masked_window_ratio(hist, a, b),
+                            device),
+            first_design_ms=graph_ms(lambda: fd.masked_window_ratio(
+                hist, a, b), device),
             plain_ms=time_ms(lambda: wr.masked_window_ratio_plain(
                 hist, a, b), device, 3, 1),
-            library_ms=time_ms(library(a, b), device, 20, 3),
+            library_ms=graph_ms(library(a, b), device),
             bytes=4 * s * w * 2 + 2 * n * w + 12 * n * s,
-            ops=2 * n * s * w, err=err)
-        extra[n] = timings
-    main, mixed = extra[52], extra[9]
+            # the running sums of both channels, a subtract and an add per
+            # run and site, one divide per answer
+            ops=2 * s * w + 2 * runs * s + n * s, runs=runs, err=err)
+    main = extra.pop("n52")
+    for e in extra.values():
+        e["bound_ms"] = max(e.pop("bytes") / HBM_BYTES_PER_S,
+                            e.pop("ops") / OPS32_PER_S) * 1e3
+        e.pop("err")
     return kernel_row(
-        "windowed_ratio.masked", launches, main["err"], main["ms"],
-        main["plain_ms"], main["library_ms"], main["bytes"], ops=main["ops"],
-        shape="S=100000 W=52 N=52 (growing)",
-        n9_ms=mixed["ms"], n9_plain_ms=mixed["plain_ms"],
-        n9_library_ms=mixed["library_ms"],
-        n9_bound_ms=max(mixed["bytes"] / HBM_BYTES_PER_S,
-                        mixed["ops"] / OPS32_PER_S) * 1e3)
+        "windowed_ratio.masked", launches, main.pop("err"), main.pop("ms"),
+        main.pop("plain_ms"), main.pop("library_ms"), main.pop("bytes"),
+        ops=main.pop("ops"), shape="S=100000 W=52 N=52 (growing)", **main,
+        n9=extra["n9"], alternating_n52=extra["alternating"])
 
 
 # ------------------------------------------------------------- phase 8

@@ -80,3 +80,14 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if needed)."""
     build_all()
     return ctypes.CDLL(str(library_path(name)))
+
+
+def bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    """Declare each entry point's arguments ("p" pointer, "q" int64, "i"
+    int32, in order) and its int32 result."""
+    kinds = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
+    for name, sig in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[k] for k in sig]
+        fn.restype = ctypes.c_int
+    return lib

@@ -23,10 +23,11 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import bind, library
 
-TILE = 1024          # records per tile; equals kTile in csrc/count_scatter.cu
-MAX_DESTS = 1025     # P + 1 destination counters fit in shared memory
+TILE = 4096          # records per tile; equals kTile in csrc/count_scatter.cu
+MAX_DESTS = 1025     # P + 1 destination counters per warp fit in shared
+                     # memory (K2 opts in to 72 KB at 1025)
 
 
 def _check_rows(name: str, *tensors: torch.Tensor) -> None:
@@ -55,17 +56,14 @@ def _check_dests(name: str, num_dests: int, device: torch.device) -> None:
                          f"kernel's {MAX_DESTS} shared-memory counters")
 
 
+# argument kinds of each C entry point, as declared in csrc/count_scatter.cu
+SIGNATURES = {"count_tiles": "ppqiiip", "scatter_tiles": "ppppqiiip",
+              "count_scatter_tile": ""}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("count_scatter")
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.count_tiles.argtypes = [ptr, ptr, i64, i32, i32, i32, ptr]
-    lib.count_tiles.restype = i32
-    lib.scatter_tiles.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
-                                  ptr]
-    lib.scatter_tiles.restype = i32
-    lib.count_scatter_tile.argtypes = []
-    lib.count_scatter_tile.restype = i32
+    lib = bind(library("count_scatter"), SIGNATURES)
     if lib.count_scatter_tile() != TILE:
         raise RuntimeError("csrc/count_scatter.cu was built with another "
                            "record tile than ops.TILE")
@@ -129,10 +127,13 @@ def tile_bases(counts_t: torch.Tensor):
     row's counts; ``base[b, t, d]`` adds the exclusive prefix sum over the
     tiles before ``t``: the output offset of tile t's first record for d.
     """
-    counts = counts_t.sum(dim=1, dtype=torch.int32)
+    # the scan over tiles runs along the innermost axis: PyTorch scans a
+    # middle axis with one thread per column, serially
+    by_dest = counts_t.transpose(1, 2).contiguous()          # [B, D, T]
+    counts = by_dest.sum(dim=-1, dtype=torch.int32)
     starts = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
-    tile_excl = torch.cumsum(counts_t, dim=1, dtype=torch.int32) - counts_t
-    base = (starts.unsqueeze(1) + tile_excl).contiguous()
+    tile_excl = torch.cumsum(by_dest, dim=-1, dtype=torch.int32) - by_dest
+    base = (starts.unsqueeze(-1) + tile_excl).transpose(1, 2).contiguous()
     return base, starts
 
 

@@ -47,7 +47,7 @@ from repro_torch.common.types import (
     WEEKS_PER_YEAR,
     unpack_site_week_mark,
 )
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import bind, library
 from repro_torch.kernels.segment_hist.ref import segment_hist_ref
 
 _INT32_MIN, _INT32_MAX = -2**31, 2**31 - 1
@@ -128,17 +128,6 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def _bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
-    """Declare each entry point's arguments ("p" pointer, "q" int64, "i"
-    int32, in order) and its int32 result."""
-    kinds = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
-    for name, sig in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [kinds[k] for k in sig]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 # argument kinds of each C entry point, as declared in its source
 PACKED_SIGNATURES = {"packed_hist": "ppppqiiiiiiiip",
                      "packed_hist_hot_sites": "ppqiiiiiip",
@@ -150,12 +139,12 @@ HIST_SIGNATURES = {"segment_hist": "pppppppqiiiiiiiip",
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return _bind(library("segment_hist_packed"), PACKED_SIGNATURES)
+    return bind(library("segment_hist_packed"), PACKED_SIGNATURES)
 
 
 @functools.cache
 def _hist_lib() -> ctypes.CDLL:
-    return _bind(library("segment_hist"), HIST_SIGNATURES)
+    return bind(library("segment_hist"), HIST_SIGNATURES)
 
 
 def _work(t: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ import functools
 import torch
 
 from repro_torch.common.types import safe_ratio
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import bind, library
 from repro_torch.kernels.windowed_ratio.ref import windowed_ratio_ref
 
 _INT32_MAX = 2**31 - 1
@@ -83,14 +83,22 @@ def windowed_ratio(hist: torch.Tensor):
 windowed_ratio.launches = 0
 
 
+# argument kinds of K5's C entry point, as declared in its source
+MASKED_SIGNATURES = {"masked_window_ratio": "pppppppiiip"}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("windowed_ratio_masked")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.masked_window_ratio.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                        i32, i32, ptr]
-    lib.masked_window_ratio.restype = i32
+    lib = bind(library("windowed_ratio_masked"), MASKED_SIGNATURES)
+    lib.masked_window_ratio_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.masked_window_ratio_scratch.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(num_weeks: int, num_queries: int) -> int:
+    """Bytes of K5's run lists for W weeks and N queries."""
+    return _lib().masked_window_ratio_scratch(num_weeks, num_queries)
 
 
 def masked_window_ratio_plain(hist: torch.Tensor, num_masks: torch.Tensor,
@@ -140,11 +148,14 @@ def masked_window_ratio(hist: torch.Tensor, num_masks: torch.Tensor,
     rho = torch.empty(n, s, dtype=torch.float32, device=hist.device)
     num = torch.empty(n, s, dtype=torch.int32, device=hist.device)
     den = torch.empty_like(num)
+    # the masks' run lists, written by the kernel's first launch
+    runs = torch.empty(_scratch_bytes(w, n), dtype=torch.uint8,
+                       device=hist.device)
     masked_window_ratio.launches += 1
     err = _lib().masked_window_ratio(
         hist.data_ptr(), num_masks.data_ptr(), den_masks.data_ptr(),
-        rho.data_ptr(), num.data_ptr(), den.data_ptr(), s, w, n,
-        torch.cuda.current_stream(hist.device).cuda_stream)
+        runs.data_ptr(), rho.data_ptr(), num.data_ptr(), den.data_ptr(), s,
+        w, n, torch.cuda.current_stream(hist.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_window_ratio: CUDA launch failed with "
                            f"error {err}")

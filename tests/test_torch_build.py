@@ -1,7 +1,13 @@
 """How the port's CUDA kernels are built (``kernels/_build.py``), on the
 CPU: nothing here runs nvcc."""
 
+import re
+
+import pytest
+
 from repro_torch.kernels import _build
+from repro_torch.kernels.count_scatter import ops as cs_ops
+from repro_torch.kernels.windowed_ratio import ops as wr_ops
 
 
 def test_kernels_build_for_sm_90a_without_fast_math():
@@ -34,3 +40,31 @@ def test_library_name_follows_the_source_and_the_flags(monkeypatch):
     monkeypatch.undo()
     assert _build.library_path("segment_hist") == before
     assert (_build.library_path("segment_hist").parent == _build.BUILD_DIR)
+
+
+def _c_entry_points(name: str) -> dict:
+    """Argument kinds of each ``extern "C" int`` function of a source: "p"
+    pointer, "q" long long, "i" int."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    return {fn: "".join("p" if "*" in a else "q" if a.split()[0] == "long"
+                        else "i" for a in args.split(",") if a.strip())
+            for fn, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src)}
+
+
+@pytest.mark.parametrize("name,signatures", [
+    ("count_scatter", cs_ops.SIGNATURES),
+    ("windowed_ratio_masked", wr_ops.MASKED_SIGNATURES)])
+def test_ctypes_declarations_match_the_c_entry_points(name, signatures):
+    """K1/K2's and K5's wrappers declare what their sources take: a wrong
+    declaration passes a cut pointer or shifts the arguments (K5's takes
+    the run lists' scratch since it encodes the masks on the card)."""
+    assert _c_entry_points(name) == signatures
+
+
+def test_the_record_tile_matches_the_kernel():
+    """K1 and K2 tile the records by ``ops.TILE``; the plain versions and
+    the glue between the kernels use the same tile."""
+    src = (_build.CSRC / "count_scatter.cu").read_text()
+    assert int(re.search(r"constexpr int kTile = (\d+);", src)
+               .group(1)) == cs_ops.TILE == 4096

@@ -481,3 +481,135 @@ def test_hist_kernels_on_malgen_at_the_main_shapes(cuda_device):
         torch.testing.assert_close(
             segment_hist_packed_words(shipped, **kw3),
             segment_hist_packed_words_plain(shipped, **kw3), rtol=0, atol=0)
+
+
+K5_MASK_KINDS = ("none", "first", "last", "all", "alternating", "window",
+                 "random")
+
+
+def _k5_masks(kind, n, w, rng):
+    """N masks of one shape (as in test_torch_windowed_ratio.py): no week,
+    one run from the first week or to the last, every week, alternating
+    weeks, one run anywhere, or each week at random."""
+    weeks = np.arange(w)[None, :]
+    k = rng.integers(0, w + 1, size=(n, 1))
+    if kind == "none":
+        return np.zeros((n, w), bool)
+    if kind == "first":
+        return weeks < np.maximum(k, 1)
+    if kind == "last":
+        return weeks >= np.minimum(k, w - 1)
+    if kind == "all":
+        return np.ones((n, w), bool)
+    if kind == "alternating":
+        return (weeks + np.arange(n)[:, None]) % 2 == 0
+    if kind == "window":
+        a = rng.integers(0, w, size=(n, 1))
+        return (weeks >= a) & (weeks < a + 1 + k % (w - a))
+    return rng.random((n, w)) < 0.5
+
+
+def _k5_equal(got, want, msg):
+    assert torch.equal(got[0].view(torch.int32),
+                       want[0].view(torch.int32)), f"rho {msg}"
+    assert torch.equal(got[1], want[1]), f"num {msg}"
+    assert torch.equal(got[2], want[2]), f"den {msg}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 52, 64, 65])
+@pytest.mark.parametrize("n", [1, 9, 52, 57, 129])
+def test_masked_window_ratio_mask_shapes_equal_plain(cuda_device, n, w):
+    """K5's prefix differences over every mask shape, at N of one query
+    block and more (129: three blocks of 64), W of one chunk and more, and
+    S of 1, a part of one 64-site tile and a ragged 1000, bit-equal to
+    its plain version; each call one launch."""
+    from repro_torch.kernels.windowed_ratio import (
+        masked_window_ratio,
+        masked_window_ratio_plain,
+    )
+
+    rng = np.random.default_rng(n * 100 + w)
+    for s in (1, 37, 1000):
+        hist = rng.integers(0, 1000, size=(s, w, 2), dtype=np.int32)
+        hist[rng.random(s) < 0.2] = 0
+        hist = torch.from_numpy(hist).to(cuda_device)
+        for kind in K5_MASK_KINDS:
+            nm = torch.from_numpy(_k5_masks(kind, n, w, rng)).to(cuda_device)
+            dm = torch.from_numpy(_k5_masks(kind, n, w, rng)).to(cuda_device)
+            reset_launch_counts()
+            got = masked_window_ratio(hist, nm, dm)
+            assert launch_counts()["windowed_ratio.masked"] == 1
+            _k5_equal(got, masked_window_ratio_plain(hist, nm, dm),
+                      f"N={n} W={w} S={s} {kind}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("high", [1 << 20, 1 << 27])
+def test_masked_window_ratio_wraps_like_plain(cuda_device, high):
+    """Sums past 2^24 and past 2^31 (int32 wrap) over every mask shape,
+    across two week chunks (W = 65)."""
+    from repro_torch.kernels.windowed_ratio import (
+        masked_window_ratio,
+        masked_window_ratio_plain,
+    )
+
+    rng = np.random.default_rng(high % 1000)
+    hist = torch.from_numpy(rng.integers(0, high, size=(1000, 65, 2),
+                                         dtype=np.int32)).to(cuda_device)
+    for kind in K5_MASK_KINDS:
+        nm = torch.from_numpy(_k5_masks(kind, 57, 65, rng)).to(cuda_device)
+        got = masked_window_ratio(hist, nm, nm)
+        _k5_equal(got, masked_window_ratio_plain(hist, nm, nm),
+                  f"high={high} {kind}")
+        if kind == "all":
+            assert int(got[1].max()) > 1 << 24
+            assert high < 1 << 27 or int(got[1].min()) < 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_dests", [1, 2, 9, 257, 1025])
+def test_count_scatter_at_the_tile_equals_ref(cuda_device, num_dests):
+    """K1 and K2 against their plain versions and count_scatter against
+    the stable-argsort oracle, with rows ragged across the tile (a record
+    short of it, one past, three and a bit, and a row length that is no
+    multiple of 4, so only the first row is 16-byte aligned), every record
+    on one destination, invalid rows on the pseudo-destination, and
+    destinations out of range (K1/K2 only: they land nowhere)."""
+    p = num_dests - 1
+    tile = cs.TILE
+    for rows, n in ((1, tile - 1), (2, tile + 1), (3, 3 * tile + 77),
+                    (3, 8 * tile)):
+        w, d = _case(num_dests * n + rows, rows, n, p, cuda_device)
+        rng = np.random.default_rng(n)
+        mask = torch.from_numpy(rng.random((rows, n)) < 0.3).to(cuda_device)
+        out = torch.from_numpy(rng.choice(
+            [-3, -1, num_dests, num_dests + 9], size=(rows, n)).astype(
+                np.int32)).to(cuda_device)
+        cases = {"random": d, "one dest": torch.full_like(d, p // 2),
+                 "invalid rows": torch.where(mask, p, d),
+                 "out of range": torch.where(mask, out, d)}
+        for name, dd in cases.items():
+            msg = f"D={num_dests} rows={rows} n={n} {name}"
+            counts = cs.count_tiles(dd, num_dests)
+            assert torch.equal(counts, cs.count_tiles_plain(dd, num_dests)), \
+                msg
+            base, _ = cs.tile_bases(counts)
+            assert torch.equal(cs.scatter_tiles(w, dd, base),
+                               cs.scatter_tiles_plain(w, dd, base)), msg
+            if name != "out of range":
+                got = cs.count_scatter(w, dd, p)
+                for a, b in zip(got, count_scatter_ref(w, dd, p)):
+                    assert torch.equal(a, b), msg
+
+
+@pytest.mark.cuda
+def test_count_scatter_at_the_main_shapes_equals_ref(cuda_device):
+    """K1 and K2 over [8, 2^23] records to 9 destinations, the counting
+    main path's width, against the stable-argsort oracle."""
+    w, d = _case(3, 8, 1 << 23, 8, cuda_device)
+    reset_launch_counts()
+    got = cs.count_scatter(w, d, 8)
+    assert launch_counts()["count_scatter.scatter"] == 1
+    for a, b in zip(got, count_scatter_ref(w, d, 8)):
+        assert torch.equal(a, b)

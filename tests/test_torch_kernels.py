@@ -129,6 +129,64 @@ def test_count_and_scatter_plain_kernels_compose_to_count_scatter():
     torch.testing.assert_close(starts, want_s, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("num_dests", [1, 2, 9, 1025])
+@pytest.mark.parametrize("n", [cs_ops.TILE - 1, cs_ops.TILE + 1,
+                               2 * cs_ops.TILE + 77])
+def test_count_scatter_at_the_tile_matches_jax(n, num_dests, rows):
+    """Rows one record short of a tile, one past it and ragged across
+    three, at one destination (only the pseudo-destination), two, the
+    chip cell's nine and the kernel's most (1025), with a share of
+    invalid rows sent to the pseudo-destination as the exchange sends
+    them: the port and its K1/K2 plain versions equal JAX row by row."""
+    p = num_dests - 1
+    words, dest = _case(n * num_dests + rows, rows, n, p)
+    invalid = np.random.default_rng(n + rows).random((rows, n)) < 0.25
+    words[invalid] = 0
+    dest[invalid] = p
+    got_w, got_s = _port_count_scatter(words, dest, p)
+    w_t, d_t = torch.from_numpy(words.view(np.int32)), torch.from_numpy(dest)
+    counts_t = cs_ops.count_tiles_plain(d_t, num_dests)
+    assert counts_t.shape == (rows, cs_ops.num_tiles(n), num_dests)
+    base, starts = cs_ops.tile_bases(counts_t)
+    plain_w = cs_ops.scatter_tiles_plain(w_t, d_t, base).numpy()
+    for r in range(rows):
+        want_w, want_s = _jax_count_scatter(words[r], dest[r], p)
+        np.testing.assert_array_equal(got_w[r], want_w, err_msg=f"row {r}")
+        np.testing.assert_array_equal(got_s[r], want_s, err_msg=f"row {r}")
+        np.testing.assert_array_equal(plain_w[r].view(np.uint32), want_w,
+                                      err_msg=f"plain K2, row {r}")
+        np.testing.assert_array_equal(starts[r].numpy(), want_s)
+
+
+@pytest.mark.parametrize("num_dests", [1, 2, 9, 1025])
+def test_plain_k1_k2_drop_destinations_out_of_range(num_dests):
+    """K1 and K2 take destinations outside ``[0, D)`` as no record: they
+    count nowhere and land nowhere, and the other records keep the stable
+    order of the argsort over the valid ones (the slots after them are
+    left as the plain version's zeros)."""
+    rows, n = 3, 2 * cs_ops.TILE + 77
+    words, dest = _case(num_dests, rows, n, num_dests - 1)
+    rng = np.random.default_rng(num_dests)
+    out = rng.random((rows, n)) < 0.3
+    dest[out] = rng.choice([-7, -1, num_dests, num_dests + 5],
+                           size=int(out.sum()))
+    w_t, d_t = torch.from_numpy(words.view(np.int32)), torch.from_numpy(dest)
+    counts_t = cs_ops.count_tiles_plain(d_t, num_dests)
+    np.testing.assert_array_equal(counts_t.sum(dim=(1, 2)).numpy(),
+                                  (~out).sum(axis=1))
+    base, _ = cs_ops.tile_bases(counts_t)
+    got = cs_ops.scatter_tiles_plain(w_t, d_t, base).numpy()
+    for r in range(rows):
+        keep = ~out[r]
+        want = jnp.asarray(words[r][keep])[
+            jnp.argsort(jnp.asarray(dest[r][keep]), stable=True)]
+        k = int(keep.sum())
+        np.testing.assert_array_equal(got[r, :k].view(np.uint32),
+                                      np.asarray(want))
+        assert not got[r, k:].any()
+
+
 def _packed_case(seed, p, length, s_local, num_weeks):
     rng = np.random.default_rng(seed)
     site = rng.integers(0, s_local * p, size=(p, length))

@@ -26,6 +26,7 @@ from repro.kernels.windowed_ratio.ref import (
 from repro.kernels.windowed_ratio.ref import (
     windowed_ratio_ref as jax_windowed_ratio_ref,
 )
+from repro_torch.common.types import safe_ratio
 from repro_torch.core import spm
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.windowed_ratio import (
@@ -140,6 +141,111 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     for h, nm, dm, match in bad:
         with pytest.raises(ValueError, match=match):
             masked_window_ratio(h, nm, dm)
+
+
+# --------------------------- K5's design: prefix differences over mask runs
+WEEK_CHUNK = 64     # kWeekChunk in csrc/windowed_ratio_masked.cu
+MASK_KINDS = ("none", "first", "last", "all", "alternating", "window",
+              "random")
+
+
+def _mask_kind(kind, n, w, rng):
+    """N masks of one shape: no week; one run from the first week or to
+    the last; every week; alternating weeks (both phases); one run
+    anywhere (a window); or each week at random."""
+    weeks = np.arange(w)[None, :]
+    k = rng.integers(0, w + 1, size=(n, 1))
+    if kind == "none":
+        return np.zeros((n, w), bool)
+    if kind == "first":
+        return weeks < np.maximum(k, 1)
+    if kind == "last":
+        return weeks >= np.minimum(k, w - 1)
+    if kind == "all":
+        return np.ones((n, w), bool)
+    if kind == "alternating":
+        return (weeks + np.arange(n)[:, None]) % 2 == 0
+    if kind == "window":
+        a = rng.integers(0, w, size=(n, 1))
+        return (weeks >= a) & (weeks < a + 1 + k % (w - a))
+    return rng.random((n, w)) < 0.5
+
+
+def _edge_bytes(mask):
+    """The kernel's edge list of one mask over one week chunk: each
+    position j in [0, wc] where the mask (unset outside the chunk) differs
+    from the week before, as the byte ``j << 1 | starts-a-run``."""
+    m = np.concatenate([[False], mask, [False]])
+    return [(int(j) << 1) | int(m[j + 1])
+            for j in np.flatnonzero(m[1:] != m[:-1])]
+
+
+def _prefix_model(hist, nm, dm):
+    """A torch model of K5's arithmetic: per chunk of WEEK_CHUNK weeks,
+    each site's exclusive prefix sums P_c of both channels in uint32, and
+    each query's sum as P_c at its mask's run ends minus P_c at its run
+    starts, mod 2^32, added onto the earlier chunks' sums."""
+    h = torch.from_numpy(hist).to(torch.int64)
+    s, w, _ = h.shape
+    sums = torch.zeros(2, nm.shape[0], s, dtype=torch.int64)
+    for w0 in range(0, w, WEEK_CHUNK):
+        wc = min(WEEK_CHUNK, w - w0)
+        pre = torch.zeros(2, wc + 1, s, dtype=torch.int64)
+        pre[:, 1:] = torch.cumsum(h[:, w0:w0 + wc].permute(2, 1, 0),
+                                  dim=1) % 2**32
+        for c, masks in ((0, dm), (1, nm)):
+            for q in range(masks.shape[0]):
+                for e in _edge_bytes(masks[q, w0:w0 + wc]):
+                    v = pre[c, e >> 1]
+                    sums[c, q] += -v if e & 1 else v
+        sums %= 2**32
+    den, num = (torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+                for x in sums)
+    return [x.numpy() for x in (safe_ratio(num, den), num, den)]
+
+
+@pytest.mark.parametrize("high", (1000, 1 << 20, 1 << 27))
+@pytest.mark.parametrize("w", (1, 52, 64, 65))
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_prefix_difference_model_equals_the_references(kind, w, high):
+    """K5's run encoding and prefix differences give the exact wrapping
+    int32 sums for every mask shape, at W of one week, the service's 52,
+    one chunk (64) and one week past it (65), with counts whose sums stay
+    small, pass 2^24 or pass 2^31."""
+    rng = np.random.default_rng(len(kind) * 1000 + w * 10 + high % 7)
+    hist, _, _ = _case(w + high % 11, 9, w, 129, high=high, density=0.9)
+    nm, dm = _mask_kind(kind, 9, w, rng), _mask_kind(kind, 9, w, rng)
+    got = _prefix_model(hist, nm, dm)
+    _assert_equal(got, _jax(jax_masked_window_ratio_ref, hist, nm, dm),
+                  f"{kind} vs JAX's masked_window_ratio_ref")
+    _assert_equal(got, _port(masked_window_ratio_ref, hist, nm, dm),
+                  f"{kind} vs the port's ref")
+    _assert_equal(got, _port(masked_window_ratio, hist, nm, dm),
+                  f"{kind} vs the plain version")
+    if high == 1 << 27 and kind in ("all", "last") and w >= 52:
+        assert (got[1] < 0).any(), "no sum passed 2^31"
+    if high == 1 << 20 and kind == "all" and w > 1:
+        assert (got[1] > 1 << 24).any(), "no sum passed 2^24"
+
+
+@pytest.mark.parametrize("w", (1, 52, 64, 65))
+def test_edge_lists_of_the_mask_shapes(w):
+    """Edges per mask: none for an empty mask, two for one run (the end
+    at W when the run reaches the last week), and for alternating weeks
+    one start and one end a run: 26 runs and 52 edges at W = 52."""
+    assert _edge_bytes(np.zeros(w, bool)) == []
+    assert _edge_bytes(np.ones(w, bool)) == [1, w << 1]
+    first = np.arange(w) < 1
+    assert _edge_bytes(first) == [1, 2]
+    last = np.arange(w) == w - 1
+    assert _edge_bytes(last) == [((w - 1) << 1) | 1, w << 1]
+    alt = np.arange(w) % 2 == 0
+    edges = _edge_bytes(alt)
+    assert len(edges) == w + (w % 2)
+    assert len(edges) // 2 == alt.sum()            # one start, one end a run
+    assert [e & 1 for e in edges] == [1, 0] * (len(edges) // 2)
+    if w == 52:
+        assert len(edges) == 52
 
 
 # ------------------------------------------------- windowed_ratio (K7)
