@@ -22,9 +22,12 @@
    MalStone B over MalGen records generated on the card (``MalGenConfig()``
    defaults: 100,000 sites, 1,000,000 entities, 52 weeks), 8 nodes x 2^23
    records, the counting exchange at capacity factor 2.0 and the fused
-   reducer. Every kernel's launch counter must rise in that run. Then timed
-   runs, a per-stage breakdown, a profile, peak memory and the checks:
-   lossless shuffle, byte accounting, and the histogram against a direct
+   reducer. Every kernel's launch counter must rise in that run: K1-K3,
+   K6 (the generated records' sites: one launch a node and one for the
+   marked stream) and K7 (the MalStone B finalize, once). Then timed runs,
+   a per-stage breakdown (with the part of generation that is
+   ``sample_sites``), a profile, peak memory and the checks: lossless
+   shuffle, byte accounting, and the histogram against a direct
    ``torch.bincount`` over the generated log.
 4. Times each kernel at the main path's shapes against its plain version,
    one library call computing the same function (a yardstick the port
@@ -39,7 +42,9 @@
    and ``mapreduce`` with the columns exchange, ``partitioned=True``, over
    the same shards as a log. Histograms and the rho bits of A, B and
    B-fixed equal the counting path's; the columns exchange's shuffle stats
-   equal its (``bytes_exchanged`` at 17 bytes a slot). Prints each
+   equal its (``bytes_exchanged`` at 17 bytes a slot). Each run launches
+   exactly its kernels: K4 (and K1, K2 a round for columns), K6 nodes + 1
+   times where it generates, K7 once for statistic B. Prints each
    backend's stage times, records/s, peak memory and profile, then checks
    and times K4 at these shapes as in 4, over sites drawn uniformly and
    at a service step's 2^20 records a node.
@@ -56,6 +61,8 @@
    ``mapreduce_combiner`` 2 steps. The resident snapshot equals the
    streaming engine (rho bits of A, B and B-fixed, every ShuffleStats
    field) and the one-shot counting run over ``generate_chunked_log``;
+   each ingest step launches K6 twice a node (a chunk's marked and
+   unmarked draws) and each B result K7 once;
    the ``mixed`` and ``growing`` query batches launch K5 once each, equal
    its plain version, and the 52 growing B answers equal ``malstone_b``'s
    rho columns. Prints ingest and query latency percentiles, records/s,
@@ -65,14 +72,21 @@
    device (a CUDA graph), with the wrapper's host work, and cold.
 8. The bench (``repro_torch.bench``): (a) K6, the power-law sampler, and
    K7, the MalStone B finalizer, bit-equal to their plain versions on edge
-   cases (K6: S in {1, 7, 2048, 100,000}, n in {1, 1023, 2^23}, ties,
-   runs of equal entries, NaN, +-inf, -0.0; K7: W in {1, 52, 65, 130},
-   zero weeks, sums above 2^24 and past 2^31); (b) the six ``kernel_*``
-   scenarios at n = 2^23, S = 100,000 through ``run_scenarios``, each with
-   the launch counts set to 0 just before it and read just after (K4, K6
-   and K7 launch only in their ``_pallas`` rows), each kernel equal to its
-   plain version on the scenario's inputs, and K6 and K7 timed against
-   their plain versions, a library yardstick and their bounds; (c) the
+   cases (K6: S in {1, 7, 2048, 100,000}, n in {1, 1023, 2^18 - 1, 2^18,
+   2^23}, ties, runs of equal entries, NaN, +-inf, -0.0, the MalGen CDFs
+   with draws on their entries and on the guide's bucket edges, u at an
+   odd offset, a last entry below 1, entries outside [0, 1]; K7: W in {1,
+   2, 31, 32, 33, 52, 64, 65, 130}, S in {1, 7, 1001, 100,000}, zero
+   weeks, sums above 2^24 and past 2^31, a histogram at an odd offset);
+   (b) the six ``kernel_*`` scenarios at n = 2^23, S = 100,000 through
+   ``run_scenarios``, each with the launch counts set to 0 just before it
+   and read just after (K4, K6 and K7 launch only in their ``_pallas``
+   rows), each kernel equal to its plain version on the scenario's inputs,
+   and K6 and K7 timed against their plain versions, a library yardstick,
+   their first designs (``tools/first_designs.py``) and their bounds; K6
+   also on the MalGen unmarked CDF at a node's draws and at a service
+   step's chunk sizes, the wrapper against ``torch.searchsorted`` with
+   the host work of both; (c) the
    port's ``smoke`` selection (38 scenarios) at the same widths, 8 nodes x
    2^20 records, into a document that must validate and compare clean
    against itself; prints its records/s and queries/s.
@@ -143,9 +157,10 @@ KERNEL_INFO = {
         "src/repro_torch/kernels/csrc/windowed_ratio.cu",
         "src/repro/kernels/windowed_ratio/windowed_ratio.py:29"),
 }
-# the kernels of the counting main path (phase 3)
+# the kernels of the counting main path (phase 3): K6 samples the sites of
+# the generated records, K7 finalizes MalStone B
 MAIN_KERNELS = ("count_scatter.count", "count_scatter.scatter",
-                "segment_hist.packed")
+                "segment_hist.packed", "powerlaw_sample", "windowed_ratio")
 STATISTICS = ("A", "B-fixed", "B")     # B last: its run is the one read
 
 
@@ -583,6 +598,12 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the main path")
     check(launches["segment_hist"] == 0, "K4 ran on the counting path")
+    # one K6 launch a node's unmarked draws plus the marked stream's, one
+    # K7 launch for the finalize
+    check(launches["powerlaw_sample"] == nodes + 1,
+          f"{launches['powerlaw_sample']} K6 launches, expected {nodes + 1}")
+    check(launches["windowed_ratio"] == 1,
+          f"{launches['windowed_ratio']} K7 launches, expected 1")
 
     # MapReduce must equal the plain site-week histogram of the same log
     log_t = generate_shards_device(seed, cfg, nodes, rps, device=device)
@@ -622,6 +643,8 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
     stage["generate"] = time_ms(lambda: box.__setitem__(
         "log", generate_shards_device(seed, cfg, nodes, rps, device=device)),
         device, iters=1, warmup=0)
+    stage["generate.sample_sites"] = sample_sites_ms(seed, cfg, nodes, rps,
+                                                     device)
     stage["order"] = time_ms(lambda: box.__setitem__(
         "ordered", order_words(box["log"], WEEKS_PER_YEAR, "counting")),
         device, iters=1, warmup=0)
@@ -645,6 +668,25 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
                 ordered=ordered, capacity=capacity, run_ms=samples,
                 records_per_s=total / (med / 1e3), stage_ms=stage,
                 peak_bytes=peak, rounds=stats.rounds, profile=prof)
+
+
+def sample_sites_ms(seed, cfg, nodes: int, rps: int, device) -> float:
+    """The part of a generation that is ``sample_sites`` (K6 on the card):
+    the marked stream's draws on the marked CDF and each node's unmarked
+    draws on the unmarked CDF, timed alone on draws of the same sizes."""
+    from repro_torch.malgen import sample_sites
+
+    g = torch.Generator(device=device).manual_seed(5)
+    n_unmarked = rps - len(range(0, seed.num_marked_events, nodes))
+    marked = torch.rand(seed.num_marked_events, generator=g, device=device)
+    unmarked = torch.rand(n_unmarked, generator=g, device=device)
+
+    def calls():
+        sample_sites(seed.marked_cdf, marked)
+        for _ in range(nodes):
+            sample_sites(seed.unmarked_cdf, unmarked)
+
+    return time_ms(calls, device, iters=3, warmup=1)
 
 
 def profile(drive, device, top: int = 12) -> dict:
@@ -896,11 +938,15 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                     "over the nodes (int32, wrapping as the psum does)")
             else:
                 check(stats is None, f"{path} returned ShuffleStats")
+            # K6 samples the sites of a generation (a node's unmarked
+            # draws each and the marked stream); the columns path is
+            # handed its log. K7 finalizes statistic B.
             expect = {"segment_hist": rounds, "segment_hist.packed": 0,
                       "count_scatter.count": rounds if blocks else 0,
                       "count_scatter.scatter": rounds if blocks else 0,
-                      "windowed_ratio.masked": 0, "powerlaw_sample": 0,
-                      "windowed_ratio": 0}
+                      "windowed_ratio.masked": 0,
+                      "powerlaw_sample": 0 if blocks else nodes + 1,
+                      "windowed_ratio": int(stat == "B")}
             check(launches == expect, f"{path} {stat}: launches "
                                       f"{launches}, expected {expect}")
         k4_launches[path] = launches["segment_hist"]
@@ -1185,7 +1231,7 @@ def serving(device, nodes: int, chunk: int, steps: int,
     mixes = {m: build_query_mix(m, num_sites=num_sites, top_k=8)
              for m in ("mixed", "growing")}
     seeds, oneshot = {}, {}
-    k5_launches, k5_inputs = 0, None
+    k5_launches, k5_inputs, k7_launches = 0, None, 0
     round_bound = shuffle_round_bound(
         chunk, static_capacity(chunk, nodes, CAPACITY_FACTOR))
     for backend, n_steps in (("streams", steps), ("mapreduce", steps),
@@ -1239,14 +1285,21 @@ def serving(device, nodes: int, chunk: int, steps: int,
             else:
                 want = {"count_scatter.count": 0, "count_scatter.scatter": 0,
                         "segment_hist.packed": 0, "segment_hist": 1}
-            want.update({"windowed_ratio.masked": 0, "powerlaw_sample": 0,
-                         "windowed_ratio": 0})
+            # each node's chunk samples its marked and unmarked draws
+            want.update({"windowed_ratio.masked": 0,
+                         "powerlaw_sample": 2 * nodes, "windowed_ratio": 0})
             check(got == want, f"{backend} ingest step {i}: launches {got}, "
                                f"expected {want}")
 
         # the snapshot equals the streaming engine and the one-shot run
         for stat in STATISTICS:
+            reset_launch_counts()
             res = svc.result(stat)
+            got = launch_counts()
+            check(got == dict.fromkeys(got, 0) | {
+                "windowed_ratio": int(stat == "B")},
+                f"{backend} result {stat}: launches {got}")
+            k7_launches += got["windowed_ratio"]
             ref, ref_stats = run(seed, num_sites, nodes=nodes,
                                  engine="streaming", cfg=cfg,
                                  num_chunks=num_chunks, chunk_records=chunk,
@@ -1325,7 +1378,9 @@ def serving(device, nodes: int, chunk: int, steps: int,
         del svc
     log("serve", "the resident snapshot of every backend equals the "
                  "streaming engine and the one-shot counting run; every "
-                 "batch launched K5 once and equals its plain version")
+                 "ingest step launched K6 twice a node, every B result K7 "
+                 f"once ({k7_launches} in all), every batch launched K5 "
+                 "once and equals its plain version")
     return k5_at_service_shapes(device, k5_inputs, k5_launches)
 
 
@@ -1466,58 +1521,170 @@ def k7_outputs(out):
     return (out[0].view(torch.int32), out[1], out[2])
 
 
+def k6_malgen_cdfs(device) -> dict:
+    """The marked and unmarked CDFs of ``MalGenConfig()`` (seed 0): permuted
+    power laws restricted to a mask, so with leading zero entries, runs of
+    equal entries and a last run of 1.0."""
+    from repro_torch.malgen import MalGenConfig, make_seed
+
+    seed = make_seed(0, MalGenConfig(), NODES << 20, device=device)
+    return {"marked": seed.marked_cdf, "unmarked": seed.unmarked_cdf}
+
+
+def k6_cases(device):
+    """(name, u, cdf) of K6's edge cases beyond ``k6_case``: the MalGen
+    CDFs with uniform draws, draws on their entries and on the guide's
+    bucket edges b / 2^13, at 2^20 + 3 draws (the table) and 100,003 (the
+    direct search), and u at an offset of one float (no 16-byte loads); a
+    CDF whose last entry is 0.75; one with entries from -0.5 to 2.0."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    out = []
+    for name, cdf in k6_malgen_cdfs(device).items():
+        s = cdf.shape[0]
+        for n in ((1 << 20) + 3, 100_003):
+            u = torch.rand(n, generator=g)
+            on = torch.rand(n, generator=g) < 0.2
+            u[on] = cdf.cpu()[torch.randint(0, s, (int(on.sum()),),
+                                            generator=g)]
+            edge = torch.rand(n, generator=g) < 0.1
+            u[edge] = torch.randint(0, 1 << 13, (int(edge.sum()),),
+                                    generator=g).float() / (1 << 13)
+            u = u.to(device)
+            out.append((f"MalGen {name} n={n}", u, cdf))
+            out.append((f"MalGen {name} n={n - 1}, u offset by 4 bytes",
+                        u[1:], cdf))
+    for n in (1000, (1 << 20) + 1):
+        u, cdf = k6_case(n, n, 5000, device)
+        out.append((f"last entry 0.75 n={n}", u, cdf * 0.75))
+        u = torch.rand(n, generator=g).to(device) * 3 - 1
+        out.append((f"entries in [-0.5, 2] n={n}", u,
+                    torch.linspace(-0.5, 2.0, 5000, device=device)))
+    return out
+
+
+def k7_cases(device):
+    """(name, hist) of K7's edge cases: W in {1, 2, 31, 32, 33, 52, 64, 65,
+    130} (odd W takes 4-byte loads, W > 64 more than one chunk), S in {1,
+    7, 1001} (no multiple of a block's 8 sites), counts below 1000, above
+    2^24 and past 2^31, zero weeks and empty sites; S = 100,000 at W = 52;
+    and histograms at an offset of one int (no 16-byte loads)."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    out = []
+    for w in (1, 2, 31, 32, 33, 52, 64, 65, 130):
+        for s in (1, 7, 1001):
+            for high in (1000, 1 << 20, 1 << 27):
+                hist = torch.randint(0, high, (s, w, 2), generator=g,
+                                     dtype=torch.int32)
+                hist[torch.rand(s, generator=g) < 0.2] = 0
+                hist[:, torch.rand(w, generator=g) < 0.2] = 0
+                out.append((f"S={s} W={w} high={high}", hist.to(device)))
+    out.append(("S=100000 W=52", torch.randint(
+        0, 1000, (100_000, 52, 2), generator=g, dtype=torch.int32)
+        .to(device)))
+    for w in (52, 33):
+        flat = torch.randint(0, 1 << 27, (1 + 999 * w * 2,), generator=g,
+                             dtype=torch.int32).to(device)
+        out.append((f"S=999 W={w} offset by 4 bytes",
+                    flat[1:].view(999, w, 2)))
+    return out
+
+
 def k6_k7_edge_cases(device) -> dict:
-    """K6 at S in {1, 7, 2048, 100,000} and n in {1, 1023, 2^23}; K7 at
-    W in {1, 52, 65, 130}, zero weeks, empty sites, sums above 2^24 and
-    past 2^31 (a wrapped denominator gives rho 0). Both bit-equal to their
-    plain versions. Also whether ``torch.searchsorted`` (K6's library
-    yardstick) gives the same sites on the card, NaN draws included."""
+    """K6 at S in {1, 7, 2048, 100,000} and n in {1, 1023, 2^18 - 1, 2^18,
+    2^23} (both sides of its direct-search threshold), and on
+    ``k6_cases``; K7 on ``k7_cases`` (a wrapped denominator gives rho 0).
+    Both bit-equal to their plain versions. Also whether
+    ``torch.searchsorted`` (K6's library yardstick) gives the same sites
+    on the card, NaN draws included."""
     from repro_torch.kernels.powerlaw_sample import ops as ps
     from repro_torch.kernels.windowed_ratio import ops as wr
 
     library_equal = True
-    count = 0
+    cases = []
     for s in (1, 7, 2048, 100_000):
-        for n in (1, 1023, RPS):
-            u, cdf = k6_case(s * 31 + n, n, s, device)
-            got = ps.powerlaw_sample(u, cdf)
-            exact(f"K6 S={s} n={n}", got, ps.powerlaw_sample_plain(u, cdf))
-            lib = torch.searchsorted(cdf, u, right=True).clamp(0, s - 1)
-            library_equal &= bool(torch.equal(lib.to(torch.int32), got))
-            check(int(got[torch.isnan(u)].ne(s - 1).sum()) == 0,
-                  f"K6 S={s}: a NaN draw did not give S-1")
-            count += 1
-    g = torch.Generator(device="cpu").manual_seed(8)
-    for s, w, high in ((1, 1, 10), (1000, 1, 1000), (100_000, 52, 1000),
-                       (1000, 52, 1 << 20), (1000, 65, 1 << 20),
-                       (333, 130, 1 << 27), (1000, 52, 1 << 27)):
-        hist = torch.randint(0, high, (s, w, 2), generator=g,
-                             dtype=torch.int32)
-        hist[torch.rand(s, generator=g) < 0.2] = 0
-        hist[:, torch.rand(w, generator=g) < 0.2] = 0
-        hist = hist.to(device)
+        for n in (1, 1023, (1 << 18) - 1, 1 << 18, RPS):
+            cases.append((f"S={s} n={n}",) + k6_case(s * 31 + n, n, s,
+                                                     device))
+    cases += k6_cases(device)
+    for name, u, cdf in cases:
+        got = ps.powerlaw_sample(u, cdf)
+        exact(f"K6 {name}", got, ps.powerlaw_sample_plain(u, cdf))
+        s = cdf.shape[0]
+        lib = torch.searchsorted(cdf, u, right=True).clamp(0, s - 1)
+        library_equal &= bool(torch.equal(lib.to(torch.int32), got))
+        check(int(got[torch.isnan(u)].ne(s - 1).sum()) == 0,
+              f"K6 {name}: a NaN draw did not give S-1")
+    k7 = k7_cases(device)
+    for name, hist in k7:
         got = wr.windowed_ratio(hist)
-        exact(f"K7 S={s} W={w} high={high}", k7_outputs(got),
+        exact(f"K7 {name}", k7_outputs(got),
               k7_outputs(wr.windowed_ratio_plain(hist)))
-        if high == 1 << 20:
-            check(int(got[1].max()) > 1 << 24, "K7: no sum above 2^24")
-        if high == 1 << 27 and w == 52:
+        big = hist.shape[0] == 1001 and hist.shape[1] >= 52
+        if big and "high=1048576" in name:
+            check(int(got[1].max()) > 1 << 24, f"K7 {name}: no sum above "
+                                               f"2^24")
+        if big and "high=134217728" in name:
             wrapped = got[1] <= 0
-            check(bool(wrapped.any()), "K7: no sum wrapped past 2^31")
+            check(bool(wrapped.any()), f"K7 {name}: no sum wrapped past "
+                                       f"2^31")
             check(not bool(got[0][wrapped].any()),
-                  "K7: rho != 0 where the wrapped denominator is <= 0")
-        count += 1
-    log("kernel", f"K6/K7 bit-equal to plain on {count} cases; "
-                  f"torch.searchsorted equal to K6 on the card: "
+                  f"K7 {name}: rho != 0 where the wrapped denominator is "
+                  f"<= 0")
+    log("kernel", f"K6 bit-equal to plain on {len(cases)} cases, K7 on "
+                  f"{len(k7)}; torch.searchsorted equal to K6 on the card: "
                   f"{library_equal}")
     return {"k6_library_equal": library_equal}
 
 
-def bench_kernel_pairs(device, edge: dict) -> list:
+def k6_timings(device, seed, cfg) -> dict:
+    """K6 on the MalGen unmarked CDF at a node's unmarked draws of the
+    main path, and at a service step's chunk (2^20 records: the marked
+    and unmarked draws on their CDFs), against its first design and the
+    library call. ``ms`` and ``library_ms`` are CUDA events around repeated
+    calls, the wrapper's and ``torch.searchsorted``'s host work included;
+    ``graph_ms`` the device alone."""
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+    from repro_torch.malgen.seeding import chunk_marked_records
+
+    fd = first_designs()
+    g = torch.Generator(device=device).manual_seed(6)
+    n_marked = chunk_marked_records(cfg, SERVE_CHUNK)
+    shapes = {
+        "malgen_unmarked_node": (
+            seed.unmarked_cdf,
+            RPS - len(range(0, seed.num_marked_events, NODES))),
+        "service_marked": (seed.marked_cdf, n_marked),
+        "service_unmarked": (seed.unmarked_cdf, SERVE_CHUNK - n_marked)}
+    out = {}
+    for key, (cdf, n) in shapes.items():
+        u = torch.rand(n, generator=g, device=device)
+        got = ps.powerlaw_sample(u, cdf)
+        exact(f"K6 {key}", got, ps.powerlaw_sample_plain(u, cdf))
+        exact(f"K6 first design {key}", fd.powerlaw_sample(u, cdf), got)
+
+        def library():
+            return torch.searchsorted(cdf, u, right=True).clamp(
+                0, cdf.shape[0] - 1).to(torch.int32)
+
+        out[key] = dict(
+            n=n, ms=time_ms(lambda: ps.powerlaw_sample(u, cdf), device, 20,
+                            3),
+            graph_ms=graph_ms(lambda: ps.powerlaw_sample(u, cdf), device),
+            first_design_ms=graph_ms(lambda: fd.powerlaw_sample(u, cdf),
+                                     device),
+            library_ms=time_ms(library, device, 20, 3),
+            library_graph_ms=graph_ms(library, device),
+            bound_ms=(8 * n + 4 * cdf.shape[0]) / HBM_BYTES_PER_S * 1e3)
+        log("kernel", f"K6 {key}: " + json.dumps(out[key]))
+    return out
+
+
+def bench_kernel_pairs(device, edge: dict, mp: dict) -> list:
     """The six ``kernel_*`` scenarios at full width through
     ``run_scenarios``, each with the launch counts set to 0 just before it
     and read just after; each kernel against its plain version on the
-    same inputs; K6 and K7 timed. Returns their kernels-line entries."""
+    same inputs; K6 and K7 timed (K6 also by ``k6_timings``). Returns their
+    kernels-line entries, whose launches are the main path's (phase 3)."""
     from repro_torch.bench import registry, schema
     from repro_torch.bench.run import run_scenarios
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1544,6 +1711,7 @@ def bench_kernel_pairs(device, edge: dict) -> list:
     log("bench", "kernel pairs (us/call, records/s): " + json.dumps(
         {n: (r["us_per_call"], r["records_per_s"]) for n, r in rows.items()}))
 
+    fd = first_designs()
     entries = []
     for kernel in registry.KERNELS:
         args = registry._kernel_inputs(scale, kernel, device)
@@ -1552,27 +1720,35 @@ def bench_kernel_pairs(device, edge: dict) -> list:
         if kernel == "windowed_ratio":
             got, want = k7_outputs(got), k7_outputs(want)
         err = exact(f"{kernel} at the bench's full width", got, want)
-        n_launch = launches[f"kernel_{kernel}_pallas"]
-        bench_us = {p: rows[f"kernel_{kernel}_{p}"]["us_per_call"]
-                    for p in registry.KERNEL_PATHS}
+        bench = dict(bench_launches=launches[f"kernel_{kernel}_pallas"],
+                     bench_us={p: rows[f"kernel_{kernel}_{p}"]["us_per_call"]
+                               for p in registry.KERNEL_PATHS})
         if kernel == "powerlaw_sample":
             u, cdf = args
             n, s = u.shape[0], cdf.shape[0]
+            exact("K6 first design at the bench's full width",
+                  fd.powerlaw_sample(u, cdf), got)
             entries.append(kernel_row(
-                kernel, n_launch, err,
+                kernel, mp["launches"][kernel], err,
                 time_ms(lambda: fast(u, cdf), device, 20, 3),
                 time_ms(lambda: plain(u, cdf), device, 10, 2),
                 time_ms(lambda: torch.searchsorted(cdf, u, right=True)
                         .clamp(0, s - 1), device, 20, 3),
                 4 * n + 4 * n + 4 * s,
                 ops=n * s.bit_length(),    # search steps
-                shape=f"n={n} S={s}", bench_us=bench_us,
-                library_equal_on_card=edge["k6_library_equal"]))
+                shape=f"n={n} S={s} (the bench's sorted CDF)",
+                graph_ms=graph_ms(lambda: fast(u, cdf), device),
+                first_design_ms=time_ms(lambda: fd.powerlaw_sample(u, cdf),
+                                        device, 20, 3),
+                library_equal_on_card=edge["k6_library_equal"],
+                **k6_timings(device, mp["seed"], mp["cfg"]), **bench))
         elif kernel == "windowed_ratio":
             (hist,) = args
             s, w, _ = hist.shape
+            exact("K7 first design at the bench's full width",
+                  k7_outputs(fd.windowed_ratio(hist)), got)
             entries.append(kernel_row(
-                kernel, n_launch, err,
+                kernel, mp["launches"][kernel], err,
                 time_ms(lambda: fast(hist), device, 20, 3),
                 time_ms(lambda: plain(hist), device, 10, 2),
                 time_ms(lambda: torch.cumsum(hist, dim=1,
@@ -1580,11 +1756,15 @@ def bench_kernel_pairs(device, edge: dict) -> list:
                         device, 20, 3),
                 20 * s * w, ops=3 * s * w, shape=f"S={s} W={w}",
                 library="torch.cumsum of both channels, no ratio",
-                bench_us=bench_us))
+                graph_ms=graph_ms(lambda: fast(hist), device),
+                first_design_ms=time_ms(lambda: fd.windowed_ratio(hist),
+                                        device, 20, 3),
+                cold_ms=cold_ms(lambda: fast(hist), device), **bench))
         else:
             log("bench", f"K4 at the bench's [1, {scale.records_per_node}] "
                          f"uniform columns equals its plain version; "
-                         f"launches {n_launch}, us/call {bench_us}")
+                         f"launches {bench['bench_launches']}, us/call "
+                         f"{bench['bench_us']}")
     return entries
 
 
@@ -1654,7 +1834,7 @@ def main() -> int:
                                SERVE_SMALL_STEPS))
         t8 = time.perf_counter()
         edge = k6_k7_edge_cases(device)
-        kernels += bench_kernel_pairs(device, edge)
+        kernels += bench_kernel_pairs(device, edge, mp)
         bench_smoke(device)
         log("bench", f"phase 8 took {time.perf_counter() - t8:.1f} s")
     except CheckFailed as e:

@@ -4,7 +4,8 @@ Counterpart of ``repro/core/spm.py``: ``site_week_histogram`` is the plain
 ``index_add_`` reduction of ``segment_hist_ref`` (the JAX version is
 ``segment_sum``, not a Pallas kernel), and the finalizers turn the
 ``[S, W, 2]`` histogram into MalStone A, B and B with a fixed
-denominator. Integer sums stay in int32, as in the JAX package.
+denominator. Integer sums stay in int32, as in the JAX package. On the
+card MalStone B runs K7.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from repro_torch.common.types import (
     safe_ratio,
 )
 from repro_torch.kernels.segment_hist.ref import segment_hist_ref
+from repro_torch.kernels.windowed_ratio.ops import windowed_ratio
 
 
 def site_week_histogram(log: EventLog, num_sites: int,
@@ -51,7 +53,17 @@ def malstone_a(hist: torch.Tensor) -> SpmResult:
 
 
 def malstone_b(hist: torch.Tensor) -> SpmResult:
-    """MalStone B: running weekly ratio cum_marked / cum_total."""
+    """MalStone B: running weekly ratio cum_marked / cum_total.
+
+    A CUDA histogram ``[..., W, 2]`` goes through K7 (``windowed_ratio``)
+    as ``[-1, W, 2]``, which computes the same function; on the CPU it is
+    the two int32 cumsums and ``safe_ratio`` below."""
+    if hist.device.type == "cuda":
+        rho, cum_total, cum_marked = windowed_ratio(
+            hist.reshape(-1, *hist.shape[-2:]).contiguous())
+        shape = hist.shape[:-1]
+        return SpmResult(rho=rho.reshape(shape), total=cum_total.reshape(
+            shape), marked=cum_marked.reshape(shape))
     cum_total = torch.cumsum(hist[..., 0], dim=-1, dtype=torch.int32)
     cum_marked = torch.cumsum(hist[..., 1], dim=-1, dtype=torch.int32)
     return SpmResult(rho=safe_ratio(cum_marked, cum_total),

@@ -14,18 +14,27 @@
 //   undefined in C++), wrapping past 2^31 as the JAX package's
 //   windowed_ratio_ref (jnp.cumsum) does.
 //
-// Design: one thread per site, kSites sites per block. A site's row is
-// 2 * W interleaved ints (416 bytes at W = 52), so a thread reading its own
-// row from device memory would not coalesce. The block's rows of up to
-// kWeekChunk weeks are one contiguous run of the histogram: the block
-// copies it into shared memory with kUnroll independent loads in flight
-// per thread (row stride 2 * weeks + 1 words, odd, so the threads' reads
-// of their own rows hit distinct banks). Each thread scans its row in
-// place, keeping the running sums in registers across week chunks. The
-// block then writes the three [sites, weeks] outputs back along the
-// contiguous output rows, computing rho from the scanned pair as it goes,
-// so the warps' stores are coalesced and no third tile is staged. Any
-// W >= 1 and S >= 1 are taken.
+// What bound the first design: one thread per site and 128 sites a block,
+// staged in shared memory as [128][2W + 1] ints (53.8 KB at W = 52), so 4
+// blocks fit an SM (16 warps of 64) and the 782 blocks ran in 1.48 waves;
+// each block loaded, scanned (104 dependent shared-memory read-modify-
+// writes a thread) and wrote in three phases between barriers, so no load
+// was in flight during the scan; and every element paid an integer
+// division by a run-time divisor. 0.0864 ms at S = 100,000, W = 52 on an
+// H100 80GB HBM3 at 700 W, 2.8x its byte bound.
+//
+// Design: a warp per site, no shared memory and no block barrier. A
+// persistent grid (kBlocksPerSm blocks an SM, 64 warps) walks the sites
+// grid-stride by warp; a site's weeks go in chunks of 64, lane l holding
+// weeks 2l and 2l + 1 of the chunk: one 16-byte load of (total, marked)
+// x 2 weeks, since a row of W even weeks is 8W bytes and so 16-byte
+// aligned. The warp scans the lanes' pair sums with shuffles (5 steps a
+// channel), adds the carry of the site's earlier chunks, and each lane
+// writes its two weeks of each output with one 8-byte store (an output
+// row is 4W bytes). The next (site, chunk)'s load is issued before the
+// current one is scanned, so two rows a warp are in flight. At W = 52, 26
+// lanes of 32 carry weeks. An odd W, or a pointer not so aligned, takes
+// 4-byte loads and stores instead. Any W >= 1 and S >= 1 are taken.
 //
 // What bounds it: the histogram is read once (8 bytes a site-week) and the
 // outputs written once (12 bytes a site-week); at S = 100,000, W = 52 that
@@ -37,73 +46,116 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kSites = 128;     // threads per block, one site each
-constexpr int kWeekChunk = 64;  // weeks staged per pass
-constexpr int kUnroll = 8;      // staging loads in flight per thread
+constexpr int kThreads = 256;     // 8 warps a block
+constexpr int kBlocksPerSm = 8;   // 64 warps an SM
+constexpr int kChunk = 64;        // weeks a warp scans per pass
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void windowed_ratio_kernel(const int* __restrict__ hist,
-                                      float* __restrict__ rho,
-                                      int* __restrict__ cum_total,
-                                      int* __restrict__ cum_marked,
-                                      int num_sites, int num_weeks) {
-  extern __shared__ int tile[];  // [kSites][stride]
-  const int wc_max = num_weeks < kWeekChunk ? num_weeks : kWeekChunk;
-  const int stride = 2 * wc_max + 1;
-  const int s0 = blockIdx.x * kSites;
-  const int ts = min(kSites, num_sites - s0);
-  int* row = tile + threadIdx.x * stride;
-  unsigned ct = 0u, cm = 0u;  // running sums of this thread's site
-
-  for (int w0 = 0; w0 < num_weeks; w0 += kWeekChunk) {
-    const int wc = min(kWeekChunk, num_weeks - w0);
-    const int row_len = 2 * wc;
-    const int total = ts * row_len;
-    const int* base = hist + ((long long)s0 * num_weeks + w0) * 2;
-    __syncthreads();  // the previous chunk's write-out is done with the tile
-    for (int i0 = 0; i0 < total; i0 += kSites * kUnroll) {
-      int v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kSites + threadIdx.x;
-        if (i < total) {
-          const int r = i / row_len;
-          v[u] = base[(long long)r * num_weeks * 2 + (i - r * row_len)];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kSites + threadIdx.x;
-        if (i < total) {
-          const int r = i / row_len;
-          tile[r * stride + (i - r * row_len)] = v[u];
-        }
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < ts) {
-      for (int w = 0; w < wc; ++w) {
-        ct += (unsigned)row[2 * w];
-        cm += (unsigned)row[2 * w + 1];
-        row[2 * w] = (int)ct;
-        row[2 * w + 1] = (int)cm;
-      }
-    }
-    __syncthreads();
-    const int outs = ts * wc;
-#pragma unroll 4
-    for (int j = threadIdx.x; j < outs; j += kSites) {
-      const int r = j / wc;
-      const int w = j - r * wc;
-      const int t = tile[r * stride + 2 * w];
-      const int m = tile[r * stride + 2 * w + 1];
-      const long long o = (long long)(s0 + r) * num_weeks + w0 + w;
-      cum_total[o] = t;
-      cum_marked[o] = m;
-      rho[o] = t > 0 ? __fdiv_rn((float)m, fmaxf((float)t, 1.f)) : 0.f;
-    }
+// Weeks w and w + 1 of a site's row (zeros past the last week).
+__device__ __forceinline__ uint4 load_weeks(const int* __restrict__ row,
+                                            int w, int num_weeks,
+                                            bool vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (w >= num_weeks) return v;
+  if (vec)  // w is even and W is even, so w + 1 < W
+    return __ldg(reinterpret_cast<const uint4*>(row + 2 * w));
+  v.x = (unsigned)__ldg(row + 2 * w);
+  v.y = (unsigned)__ldg(row + 2 * w + 1);
+  if (w + 1 < num_weeks) {
+    v.z = (unsigned)__ldg(row + 2 * w + 2);
+    v.w = (unsigned)__ldg(row + 2 * w + 3);
   }
+  return v;
+}
+
+__device__ __forceinline__ float ratio(unsigned m, unsigned t) {
+  const int ti = (int)t;
+  return ti > 0 ? __fdiv_rn((float)(int)m, fmaxf((float)ti, 1.f)) : 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    windowed_ratio_kernel(const int* __restrict__ hist,
+                          float* __restrict__ rho,
+                          int* __restrict__ cum_total,
+                          int* __restrict__ cum_marked, int num_sites,
+                          int num_weeks, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kThreads / 32);
+  const int chunks = (num_weeks + kChunk - 1) / kChunk;
+  int site = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (site >= num_sites) return;
+  int chunk = 0;
+  uint4 cur = load_weeks(hist + (long long)site * num_weeks * 2, 2 * lane,
+                         num_weeks, vec);
+  unsigned carry_t = 0u, carry_m = 0u;  // the site's earlier chunks
+  for (;;) {
+    // the warp's next (site, chunk), loaded before this one is scanned
+    int next_site = site, next_chunk = chunk + 1;
+    if (next_chunk == chunks) {
+      next_chunk = 0;
+      next_site = site < num_sites - warps ? site + warps : num_sites;
+    }
+    uint4 nxt = make_uint4(0u, 0u, 0u, 0u);
+    if (next_site < num_sites)
+      nxt = load_weeks(hist + (long long)next_site * num_weeks * 2,
+                       next_chunk * kChunk + 2 * lane, num_weeks, vec);
+
+    // inclusive scan of the lanes' two-week sums, both channels
+    const unsigned st = cur.x + cur.z, sm = cur.y + cur.w;
+    unsigned it = st, im = sm;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned ut = __shfl_up_sync(kFull, it, d);
+      const unsigned um = __shfl_up_sync(kFull, im, d);
+      if (lane >= d) {
+        it += ut;
+        im += um;
+      }
+    }
+    const unsigned t0 = carry_t + (it - st) + cur.x, t1 = t0 + cur.z;
+    const unsigned m0 = carry_m + (im - sm) + cur.y, m1 = m0 + cur.w;
+    carry_t += __shfl_sync(kFull, it, 31);
+    carry_m += __shfl_sync(kFull, im, 31);
+
+    const int w = chunk * kChunk + 2 * lane;
+    const long long o = (long long)site * num_weeks + w;
+    if (w < num_weeks) {
+      if (vec) {
+        *reinterpret_cast<int2*>(cum_total + o) = make_int2((int)t0, (int)t1);
+        *reinterpret_cast<int2*>(cum_marked + o) =
+            make_int2((int)m0, (int)m1);
+        *reinterpret_cast<float2*>(rho + o) =
+            make_float2(ratio(m0, t0), ratio(m1, t1));
+      } else {
+        cum_total[o] = (int)t0;
+        cum_marked[o] = (int)m0;
+        rho[o] = ratio(m0, t0);
+        if (w + 1 < num_weeks) {
+          cum_total[o + 1] = (int)t1;
+          cum_marked[o + 1] = (int)m1;
+          rho[o + 1] = ratio(m1, t1);
+        }
+      }
+    }
+    if (next_chunk == 0) carry_t = carry_m = 0u;
+    if (next_site >= num_sites) break;
+    site = next_site;
+    chunk = next_chunk;
+    cur = nxt;
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+      != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 }  // namespace
@@ -112,14 +164,16 @@ extern "C" int windowed_ratio(const int* hist, float* rho, int* cum_total,
                               int* cum_marked, int num_sites, int num_weeks,
                               void* stream) {
   if (num_sites <= 0 || num_weeks <= 0) return (int)cudaErrorInvalidValue;
-  const int wc = num_weeks < kWeekChunk ? num_weeks : kWeekChunk;
-  const size_t smem = (size_t)kSites * (2 * wc + 1) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      windowed_ratio_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((num_sites + kSites - 1) / kSites);
-  windowed_ratio_kernel<<<blocks, kSites, smem, (cudaStream_t)stream>>>(
-      hist, rho, cum_total, cum_marked, num_sites, num_weeks);
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const bool vec = num_weeks % 2 == 0 && (uintptr_t)hist % 16 == 0
+                   && (uintptr_t)rho % 8 == 0 && (uintptr_t)cum_total % 8 == 0
+                   && (uintptr_t)cum_marked % 8 == 0;
+  const long long need = ((long long)num_sites + kThreads / 32 - 1)
+                         / (kThreads / 32);
+  const long long most = (long long)sms * kBlocksPerSm;
+  windowed_ratio_kernel<<<(unsigned)(need < most ? need : most), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      hist, rho, cum_total, cum_marked, num_sites, num_weeks, vec);
   return (int)cudaGetLastError();
 }

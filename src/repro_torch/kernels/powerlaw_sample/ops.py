@@ -3,9 +3,10 @@
 Counterpart of ``repro/kernels/powerlaw_sample/ops.py:powerlaw_sample``: f32
 draws ``u`` ``[n]`` and the f32 inclusive CDF ``[S]`` -> int32 site indices
 ``[n]``, ``searchsorted(cdf, u, side="right")`` clipped to ``[0, S-1]``. On
-a CUDA tensor the wrapper launches K6 (``csrc/powerlaw_sample.cu``, a
-binary search per draw); on a CPU tensor it runs ``powerlaw_sample_plain``.
-Launches are counted in ``powerlaw_sample.launches``.
+a CUDA tensor the wrapper launches K6 (``csrc/powerlaw_sample.cu``: a guide
+table of the CDF, then a search per draw inside its bucket's bracket); on a
+CPU tensor it runs ``powerlaw_sample_plain``. Launches are counted in
+``powerlaw_sample.launches``.
 
 A NaN draw gives ``S - 1``, as ``powerlaw_sample_ref`` does. The JAX Pallas
 body counts ``cdf <= u``, which never holds for NaN, and gives 0 there
@@ -19,19 +20,25 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import bind, library
 
 _INT32_MAX = 2**31 - 1
+# argument kinds of K6's C entry point, as declared in its source
+SIGNATURES = {"powerlaw_sample": "ppppqip"}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = library("powerlaw_sample")
-    ptr = ctypes.c_void_p
-    lib.powerlaw_sample.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
-                                    ctypes.c_int, ptr]
-    lib.powerlaw_sample.restype = ctypes.c_int
+    lib = bind(library("powerlaw_sample"), SIGNATURES)
+    lib.powerlaw_sample_scratch.argtypes = []
+    lib.powerlaw_sample_scratch.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _scratch_bytes() -> int:
+    """Bytes of K6's guide table."""
+    return _lib().powerlaw_sample_scratch()
 
 
 def powerlaw_sample_plain(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
@@ -45,7 +52,7 @@ def powerlaw_sample_plain(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
     number of entries ahead of it. Adding 0.0 turns -0.0 into +0.0 first,
     so a zero draw and a zero entry tie in the sort as they do under
     ``<=``. It needs no order of the CDF and shares nothing with K6's
-    binary search or ``torch.searchsorted``.
+    search or ``torch.searchsorted``.
     """
     n, s = u.shape[0], cdf.shape[0]
     order = torch.sort(torch.cat([cdf, u]) + 0.0, stable=True).indices
@@ -76,9 +83,11 @@ def powerlaw_sample(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
     if u.device.type != "cuda":
         return powerlaw_sample_plain(u, cdf)
     out = torch.empty(n, dtype=torch.int32, device=u.device)
+    # K6's guide table (built by calls of 2^18 draws or more)
+    guide = torch.empty(_scratch_bytes(), dtype=torch.uint8, device=u.device)
     powerlaw_sample.launches += 1
     err = _lib().powerlaw_sample(
-        u.data_ptr(), cdf.data_ptr(), out.data_ptr(), n, s,
+        u.data_ptr(), cdf.data_ptr(), out.data_ptr(), guide.data_ptr(), n, s,
         torch.cuda.current_stream(u.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"powerlaw_sample: CUDA launch failed with error "

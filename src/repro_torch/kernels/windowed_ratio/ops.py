@@ -6,8 +6,9 @@ Counterparts of ``repro/kernels/windowed_ratio/ops.py``:
 - ``windowed_ratio`` (JAX ``:22``): hist int32 ``[S, W, 2]`` -> (rho f32,
   cum_total i32, cum_marked i32), each ``[S, W]``: the running weekly sums
   of both channels and their ratio. On a CUDA tensor the wrapper launches
-  K7 (``csrc/windowed_ratio.cu``); on a CPU tensor it runs
-  ``windowed_ratio_plain``.
+  K7 (``csrc/windowed_ratio.cu``, a warp per site); on a CPU tensor it runs
+  ``windowed_ratio_plain``. ``core/spm.py:malstone_b`` calls it on CUDA
+  histograms.
 - ``masked_window_ratio`` (JAX ``:40``): hist int32 ``[S, W, 2]`` and N
   numerator / denominator week masks (bool ``[N, W]``) -> (rho f32, num
   i32, den i32), each ``[N, S]``: row n answers query n over every site.
@@ -37,13 +38,13 @@ from repro_torch.kernels.windowed_ratio.ref import windowed_ratio_ref
 _INT32_MAX = 2**31 - 1
 
 
+# argument kinds of K7's C entry point, as declared in its source
+SIGNATURES = {"windowed_ratio": "ppppiip"}
+
+
 @functools.cache
 def _finalize_lib() -> ctypes.CDLL:
-    lib = library("windowed_ratio")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.windowed_ratio.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
-    lib.windowed_ratio.restype = i32
-    return lib
+    return bind(library("windowed_ratio"), SIGNATURES)
 
 
 def windowed_ratio_plain(hist: torch.Tensor):

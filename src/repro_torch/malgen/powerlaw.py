@@ -1,8 +1,8 @@
 """Power-law site popularity and inverse-CDF site sampling (paper §5).
 
 Counterpart of ``repro/malgen/powerlaw.py``. Site ``i`` gets weight
-``(rank+1)^-alpha`` after a random permutation; sampling binary-searches a
-uniform draw into the stored cumulative table.
+``(rank+1)^-alpha`` after a random permutation; sampling searches a
+uniform draw in the stored cumulative table (on the card through K6).
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.powerlaw_sample.ops import powerlaw_sample
 
 
 def power_law_weights(num_sites: int, alpha: float = 1.2,
@@ -53,6 +55,16 @@ def masked_site_cdf(weights: torch.Tensor,
 def sample_sites(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF sampling of the uniform draws ``u``: int32 site
     indices, ``searchsorted(cdf, u, right)`` clamped to ``[0, S-1]``
-    (the JAX ``jnp.searchsorted(..., side="right")`` at powerlaw.py:38)."""
-    idx = torch.searchsorted(cdf, u.to(cdf.device), right=True)
+    (the JAX ``jnp.searchsorted(..., side="right")`` at powerlaw.py:38).
+
+    On a CUDA ``cdf`` the draws go through K6 (``powerlaw_sample``), which
+    computes the same function; an empty ``u`` launches nothing. On the CPU
+    it is ``torch.searchsorted``, the JAX function's own counterpart."""
+    u = u.to(cdf.device)
+    if cdf.device.type == "cuda":
+        if u.numel() == 0:
+            return torch.empty(u.shape, dtype=torch.int32, device=u.device)
+        return powerlaw_sample(u.reshape(-1).contiguous(), cdf).reshape(
+            u.shape)
+    idx = torch.searchsorted(cdf, u, right=True)
     return idx.clamp(0, cdf.shape[0] - 1).to(torch.int32)

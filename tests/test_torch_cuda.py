@@ -613,3 +613,156 @@ def test_count_scatter_at_the_main_shapes_equals_ref(cuda_device):
     assert launch_counts()["count_scatter.scatter"] == 1
     for a, b in zip(got, count_scatter_ref(w, d, 8)):
         assert torch.equal(a, b)
+
+
+def _k6_cases(device):
+    """(name, u, cdf) of K6's cases beyond the random ones: the MalGen
+    CDFs (permuted, masked: leading zeros, runs of equal entries, a last
+    run of 1.0) with draws on their entries and on the guide's bucket
+    edges, on both sides of the direct-search threshold (2^18 draws), u at
+    an offset of one float, a last entry below 1 and entries outside
+    [0, 1]."""
+    from repro_torch.malgen import MalGenConfig
+    from repro_torch.malgen.seeding import _site_tables
+
+    rng = np.random.default_rng(18)
+    _, _, marked, unmarked = _site_tables(0, MalGenConfig(), "cpu")
+    out = []
+    for name, cdf in (("marked", marked.numpy()),
+                      ("unmarked", unmarked.numpy())):
+        for n in ((1 << 18) - 1, (1 << 18) + 5):
+            u = rng.random(n, dtype=np.float32)
+            on = rng.random(n) < 0.2
+            u[on] = cdf[rng.integers(0, cdf.shape[0], int(on.sum()))]
+            edge = rng.random(n) < 0.1
+            u[edge] = rng.integers(0, 1 << 13, int(edge.sum())) / (1 << 13)
+            u[rng.integers(0, n, 4)] = (np.nan, np.inf, -np.inf, -0.0)
+            out.append((f"{name} n={n}", u, cdf))
+            out.append((f"{name} n={n - 1} offset", u[1:], cdf))
+    below = np.sort(rng.random(3000).astype(np.float32)) * np.float32(0.75)
+    out.append(("last entry 0.75", rng.random(1 << 19, dtype=np.float32),
+                below))
+    out.append(("entries in [-0.5, 2]",
+                (rng.random(1 << 19) * 3 - 1).astype(np.float32),
+                np.linspace(-0.5, 2.0, 5000, dtype=np.float32)))
+    out.append(("S=1", rng.random(1 << 19, dtype=np.float32),
+                np.ones(1, np.float32)))
+    return [(name, torch.from_numpy(u).to(device)
+             if "offset" not in name else
+             torch.from_numpy(np.concatenate([[0.5], u]).astype(np.float32))
+             .to(device)[1:], torch.from_numpy(cdf).to(device))
+            for name, u, cdf in out]
+
+
+@pytest.mark.cuda
+def test_powerlaw_sample_edge_cases_equal_plain(cuda_device):
+    """K6 (its guide table and its direct search) on ``_k6_cases``, each
+    equal to the plain count and to ``torch.searchsorted`` on the card."""
+    from repro_torch.kernels.powerlaw_sample import (
+        powerlaw_sample,
+        powerlaw_sample_plain,
+    )
+
+    for name, u, cdf in _k6_cases(cuda_device):
+        reset_launch_counts()
+        got = powerlaw_sample(u, cdf)
+        assert launch_counts()["powerlaw_sample"] == 1, name
+        torch.testing.assert_close(got, powerlaw_sample_plain(u, cdf),
+                                   rtol=0, atol=0, msg=name)
+        lib = torch.searchsorted(cdf, u, right=True).clamp(
+            0, cdf.shape[0] - 1).to(torch.int32)
+        assert torch.equal(got, lib), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", (1, 2, 31, 32, 33, 52, 64, 65, 130))
+@pytest.mark.parametrize("s", (1, 7, 1001))
+def test_windowed_ratio_weeks_and_sites_equal_plain(cuda_device, w, s):
+    """K7 at every week count around its lane pairs (2 weeks a lane) and
+    its 64-week chunks, odd W (4-byte loads), S no multiple of a block's 8
+    sites, counts past 2^31, and a histogram at an offset of one int."""
+    from repro_torch.kernels.windowed_ratio import (
+        windowed_ratio,
+        windowed_ratio_plain,
+    )
+
+    rng = np.random.default_rng(w * 10_000 + s)
+    flat = rng.integers(0, 1 << 27, size=1 + s * w * 2, dtype=np.int32)
+    flat = torch.from_numpy(flat).to(cuda_device)
+    for name, hist in (("aligned", flat[:-1].view(s, w, 2)),
+                       ("offset", flat[1:].view(s, w, 2))):
+        reset_launch_counts()
+        got = windowed_ratio(hist)
+        assert launch_counts()["windowed_ratio"] == 1
+        want = windowed_ratio_plain(hist)
+        torch.testing.assert_close(got[0].view(torch.int32),
+                                   want[0].view(torch.int32), rtol=0, atol=0,
+                                   msg=name)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_generation_on_the_card_runs_k6_and_equals_the_cpu(cuda_device):
+    """The same seed tables and draws generate the same shards on the card
+    (sites through K6: one launch a shard's unmarked draws and one for the
+    marked stream) as on the CPU (``torch.searchsorted``)."""
+    from repro_torch.malgen.seeding import draw_events
+
+    cfg = MalGenConfig(num_sites=100_000, num_entities=100_000)
+    p, rps = 4, 300_000
+    seed = make_seed(5, cfg, p * rps, device="cpu")
+    marked = draw_events(seed.rng_seed, "marked", 0, seed.num_marked_events,
+                         cfg, "cpu")
+    unmarked = [draw_events(seed.rng_seed, "unmarked", s,
+                            rps - len(range(s, seed.num_marked_events, p)),
+                            cfg, "cpu") for s in range(p)]
+    kw = dict(marked_draws=marked, unmarked_draws=unmarked)
+    reset_launch_counts()
+    got = generate_shards_device(seed.to(cuda_device), cfg, p, rps,
+                                 device=cuda_device, **kw)
+    assert launch_counts()["powerlaw_sample"] == p + 1
+    want = generate_shards_device(seed, cfg, p, rps, device="cpu", **kw)
+    for name, x, y in zip(got._fields, got, want):
+        if x is not None:
+            assert torch.equal(x.cpu(), y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((100_000, 52), (8, 12_500, 52),
+                                   (3, 7, 130)))
+def test_malstone_b_on_the_card_runs_k7(cuda_device, shape):
+    """MalStone B of a CUDA histogram ``[..., W, 2]`` is one K7 launch,
+    bit-equal to ``windowed_ratio_plain`` of the ``[-1, W, 2]`` rows."""
+    from repro_torch.core import spm
+    from repro_torch.kernels.windowed_ratio import windowed_ratio_plain
+
+    rng = np.random.default_rng(sum(shape))
+    hist = torch.from_numpy(rng.integers(0, 1 << 27, size=(*shape, 2),
+                                         dtype=np.int32)).to(cuda_device)
+    reset_launch_counts()
+    got = spm.malstone_b(hist)
+    assert launch_counts() == dict.fromkeys(launch_counts(), 0) | {
+        "windowed_ratio": 1}
+    want = windowed_ratio_plain(hist.reshape(-1, *shape[-1:], 2))
+    assert got.rho.shape == shape
+    for a, b in zip((got.rho.view(torch.int32), got.total, got.marked),
+                    (want[0].view(torch.int32), want[1], want[2])):
+        torch.testing.assert_close(a.reshape(b.shape), b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_card_paths_refuse_what_the_kernels_do_not_take(cuda_device):
+    """No fallback: on CUDA tensors ``sample_sites`` and ``malstone_b``
+    raise where K6 and K7 refuse their input."""
+    from repro_torch.core import spm
+    from repro_torch.malgen import sample_sites
+
+    cdf = torch.linspace(0.1, 1.0, 10, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        sample_sites(cdf, torch.rand(100, dtype=torch.float64,
+                                     device=cuda_device))
+    with pytest.raises(ValueError, match="int32"):
+        spm.malstone_b(torch.zeros(5, 52, 2, dtype=torch.int64,
+                                   device=cuda_device))
+    assert sample_sites(cdf, torch.rand(0, device=cuda_device)).shape == (0,)

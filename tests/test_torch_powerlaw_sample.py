@@ -1,6 +1,8 @@
 """The port's power-law site sampler (K6's plain version, on the CPU) and
 its oracle against the JAX package: its Pallas ``_kernel`` in interpret
-mode and its ``powerlaw_sample_ref``.
+mode and its ``powerlaw_sample_ref``; K6's guide table modelled in torch
+(``_guide``, ``_bracket``); MalGen's ``sample_sites`` on the CPU against
+JAX's.
 
 Equality is exact (int32 site indices). The draws are made from a seed with
 numpy; the CDF tables are JAX's ``power_law_cdf`` and the port's
@@ -13,6 +15,8 @@ zero weights; on such a table the count of ``cdf <= u`` (the Pallas body)
 and a binary search (the reference) are different functions, and the
 sampler's contract (a non-decreasing CDF) does not hold.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +36,8 @@ from repro_torch.kernels.powerlaw_sample import (
     powerlaw_sample_plain,
     powerlaw_sample_ref,
 )
-from repro_torch.malgen import power_law_cdf, power_law_weights
+from repro_torch.kernels._build import CSRC
+from repro_torch.malgen import power_law_cdf, power_law_weights, sample_sites
 from repro_torch.malgen.powerlaw import masked_site_cdf
 
 
@@ -183,3 +188,127 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     for a, b, match in bad:
         with pytest.raises(ValueError, match=match):
             powerlaw_sample(a, b)
+
+
+# ------------------------------------------- K6's guide table, on the CPU
+# G, the table's buckets of [0, 1), as the kernel's source sets it
+GUIDE = 1 << int(re.search(r"constexpr int kLogGuide = (\d+);",
+                           (CSRC / "powerlaw_sample.cu").read_text())
+                 .group(1))
+
+
+def _guide(cdf: torch.Tensor) -> torch.Tensor:
+    """K6's table, int64 ``[G + 1]``: entry b counts the entries of the
+    (non-decreasing) CDF ``<= b / G``."""
+    edges = torch.arange(GUIDE + 1, dtype=torch.float32) / GUIDE
+    return torch.searchsorted(cdf, edges, right=True)
+
+
+def _bracket(u: torch.Tensor, cdf: torch.Tensor):
+    """(lo, hi) int64: the indices K6 searches for each draw, from
+    ``_guide`` as the kernel takes them: ``[guide[b], guide[b + 1]]`` for
+    x in [0, 1) with ``b = (int)(x * G)``; ``[0, guide[0]]`` for x < 0,
+    ``[guide[G], S]`` for x >= 1; ``[S - 1, S - 1]`` for NaN."""
+    guide = _guide(cdf)
+    s = cdf.shape[0]
+    inside = (u >= 0) & (u < 1)
+    b = torch.where(inside, u * GUIDE, 0).to(torch.int64)
+    lo = torch.where(inside, guide[b], 0)
+    hi = torch.where(inside, guide[b + 1], guide[0])
+    lo = torch.where(u >= 1, guide[GUIDE], lo)
+    hi = torch.where(u >= 1, s, hi)
+    nan = torch.isnan(u)
+    return torch.where(nan, s - 1, lo), torch.where(nan, s - 1, hi)
+
+
+def _permuted_cdf(s: int, seed: int) -> np.ndarray:
+    """A MalGen-like table: JAX's weights under a random permutation,
+    restricted to a random mask of about 90% of the sites (the unmarked
+    CDF's shape: zero entries anywhere, heavy sites anywhere), scanned as
+    the port scans."""
+    rng = np.random.default_rng(seed)
+    perm = jnp.asarray(rng.permutation(s).astype(np.int32))
+    w = jax_powerlaw.power_law_weights(s, permutation=perm)
+    mask = rng.random(s) < 0.9
+    mask[:3] = False                                 # leading zero entries
+    mask[rng.integers(0, s)] = True
+    return masked_site_cdf(torch.tensor(np.asarray(w)),
+                           torch.from_numpy(mask)).numpy()
+
+
+def _guide_draws(n: int, cdf: np.ndarray, seed: int) -> np.ndarray:
+    """``_draws`` plus draws on the guide's bucket edges b / G, just below
+    them, and NaN."""
+    u = _draws(n, cdf, seed)
+    rng = np.random.default_rng(seed + 1)
+    k = n // 8
+    edges = (rng.integers(0, GUIDE + 1, k) / GUIDE).astype(np.float32)
+    u[rng.integers(0, n, k)] = edges
+    u[rng.integers(0, n, k)] = np.nextafter(edges, np.float32(-1))
+    u[rng.integers(0, n, 3)] = np.nan
+    return u
+
+
+@pytest.mark.parametrize("kind", ("power_law", "masked", "permuted"))
+@pytest.mark.parametrize("s", (1, 7, 5000, 100_000))
+def test_guide_brackets_hold_the_reference_answer(kind, s):
+    """K6 finishes each draw's search inside [guide[b], guide[b + 1]] (or
+    [0, guide[0]] below 0, [guide[G], S] from 1 on): the bracket holds the
+    unclipped count of ``cdf <= u``, whose clip is JAX's
+    ``powerlaw_sample_ref``; a NaN draw's bracket is S - 1 alone."""
+    cdf = (_permuted_cdf(s, s) if kind == "permuted"
+           else _cdf(kind, s, s + 1))
+    u = _guide_draws(4096, cdf, s + 2)
+    lo, hi = (x.numpy() for x in _bracket(torch.tensor(u),
+                                               torch.tensor(cdf)))
+    count = np.searchsorted(cdf, u, side="right")
+    nan = np.isnan(u)
+    assert ((lo <= count) & (count <= hi))[~nan].all()
+    assert (lo[nan] == s - 1).all() and (hi[nan] == s - 1).all()
+    ref = _jax(jax_powerlaw_sample_ref, u, cdf)
+    np.testing.assert_array_equal(
+        np.where(nan, s - 1, np.clip(count, 0, s - 1)), ref)
+    if kind != "power_law" and s == 100_000:
+        # most MalGen-like brackets are one index: no search at all
+        assert (lo == hi).mean() > 0.5
+
+
+def test_guide_of_a_cdf_below_1_and_outside_0_1():
+    """A last entry below 1 leaves the draws in [cdf[-1], 1) the bracket
+    [S, S] (clipped to S - 1); entries below 0 and above 1 fall in the
+    brackets of x < 0 and x >= 1."""
+    cdf = np.array([-0.5, -0.25, 0.0, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0],
+                   np.float32)
+    u = np.array([-1.0, -0.3, -0.0, 0.0, 0.1, 0.75, 0.99, 1.0, 1.7, 3.0,
+                  np.inf, -np.inf], np.float32)
+    lo, hi = (x.numpy() for x in _bracket(torch.tensor(u),
+                                               torch.tensor(cdf)))
+    count = np.searchsorted(cdf, u, side="right")
+    assert ((lo <= count) & (count <= hi)).all()
+    below = cdf[:6] * np.float32(0.9)                  # last entry 0.675
+    u = np.array([0.6, 0.675, 0.7, 0.9999999], np.float32)
+    lo, hi = (x.numpy() for x in _bracket(torch.tensor(u),
+                                               torch.tensor(below)))
+    assert lo.tolist()[2:] == [6, 6] and hi.tolist()[2:] == [6, 6]
+    np.testing.assert_array_equal(_port(powerlaw_sample, u, below),
+                                  _jax(jax_powerlaw_sample_ref, u, below))
+
+
+@pytest.mark.parametrize("kind", ("power_law", "permuted"))
+def test_sample_sites_on_the_cpu_equals_jax(kind):
+    """MalGen's ``sample_sites`` on a CPU table stays
+    ``torch.searchsorted`` and gives JAX's ``sample_sites`` sites on JAX's
+    draws."""
+    import jax
+
+    s, n = 5000, 20_000
+    cdf = _permuted_cdf(s, 8) if kind == "permuted" else _cdf(kind, s, 9)
+    key = jax.random.key(11)
+    u = np.asarray(jax.random.uniform(key, (n,), dtype=jnp.float32))
+    got = sample_sites(torch.tensor(cdf), torch.tensor(u)).numpy()
+    want = np.asarray(jax_powerlaw.sample_sites(key, jnp.asarray(cdf), n))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    reset_launch_counts()
+    sample_sites(torch.tensor(cdf), torch.tensor(u))
+    assert launch_counts()["powerlaw_sample"] == 0

@@ -345,3 +345,24 @@ def test_windowed_ratio_rejects_what_the_kernel_does_not_take():
                         "contiguous")):
         with pytest.raises(ValueError, match=match):
             windowed_ratio(bad)
+
+
+@pytest.mark.parametrize("shape", ((1, 1), (513, 52), (4, 250, 52),
+                                   (2, 3, 40, 130)))
+def test_malstone_b_on_the_cpu_equals_jax(shape):
+    """MalStone B's finalize on a CPU histogram ``[..., W, 2]`` (a full
+    ``[S, W, 2]`` or the partitioned ``[P, S/P, W, 2]`` blocks) stays the
+    two int32 cumsums and ``safe_ratio``, equal to JAX's ``malstone_b``,
+    and launches nothing."""
+    from repro.core import spm as jax_spm
+
+    rng = np.random.default_rng(sum(shape))
+    hist = rng.integers(0, 1 << 27, size=(*shape, 2), dtype=np.int32)
+    hist[..., rng.random(shape[-1]) < 0.2, :] = 0      # zero weeks
+    reset_launch_counts()
+    got = spm.malstone_b(torch.from_numpy(hist))
+    assert launch_counts()["windowed_ratio"] == 0
+    want = jax_spm.malstone_b(jnp.asarray(hist))
+    _assert_equal1([got.rho.numpy(), got.total.numpy(), got.marked.numpy()],
+                   [np.asarray(want.rho), np.asarray(want.total),
+                    np.asarray(want.marked)], f"{shape}")

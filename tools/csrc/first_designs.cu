@@ -1,15 +1,22 @@
 // The first designs of K2 (the stable scatter, with K1 at its tile of 1,024
-// records) and K5 (the masked window ratio), kept as yardsticks: each is
-// timed beside the design in src/repro_torch/kernels/csrc/ on the same
-// inputs in the same process (chip_smoke.py, tools/kernel_turns.py). They
-// are never called by the port. See count_scatter.cu and
-// windowed_ratio_masked.cu there for what each design does.
+// records), K5 (the masked window ratio), K6 (the power-law sampler) and
+// K7 (the MalStone B finalizer), kept as yardsticks: each is timed beside
+// the design in src/repro_torch/kernels/csrc/ on the same inputs in the
+// same process (chip_smoke.py, tools/kernel_turns.py). They are never
+// called by the port. See count_scatter.cu, windowed_ratio_masked.cu,
+// powerlaw_sample.cu and windowed_ratio.cu there for what each design
+// does.
 //
 // K2, first design: one block per 1,024-record tile, 256 threads, four
 // chunks of 256 records, each chunk with four barriers and a cross-warp
 // scan of the per-warp group sizes by one thread per destination.
 // K5, first design: one thread per site, 128 sites a block; for each group
 // of 16 queries a thread walks every week with 32 predicated adds.
+// K6, first design: one thread per draw, 256 threads a block, a binary
+// search of ceil(log2(S + 1)) dependent loads over the whole CDF.
+// K7, first design: one thread per site, 128 sites a block; the block
+// stages its rows in shared memory, each thread scans its row in place,
+// and the block writes the three outputs, with barriers between phases.
 
 #include <cuda_runtime.h>
 
@@ -218,6 +225,105 @@ __global__ void masked_window_ratio_kernel(
 
 }  // namespace k5_first
 
+namespace k6_first {
+
+constexpr int kThreads = 256;
+
+__global__ void powerlaw_sample_kernel(const float* __restrict__ u,
+                                       const float* __restrict__ cdf,
+                                       int* __restrict__ out, long long n,
+                                       int num_sites) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const float x = u[i];
+  if (x != x) {  // NaN
+    out[i] = num_sites - 1;
+    return;
+  }
+  int lo = 0, hi = num_sites;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(cdf + mid) <= x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  out[i] = lo < num_sites ? lo : num_sites - 1;
+}
+
+}  // namespace k6_first
+
+namespace k7_first {
+
+constexpr int kSites = 128;     // threads per block, one site each
+constexpr int kWeekChunk = 64;  // weeks staged per pass
+constexpr int kUnroll = 8;      // staging loads in flight per thread
+
+__global__ void windowed_ratio_kernel(const int* __restrict__ hist,
+                                      float* __restrict__ rho,
+                                      int* __restrict__ cum_total,
+                                      int* __restrict__ cum_marked,
+                                      int num_sites, int num_weeks) {
+  extern __shared__ int tile[];  // [kSites][stride]
+  const int wc_max = num_weeks < kWeekChunk ? num_weeks : kWeekChunk;
+  const int stride = 2 * wc_max + 1;
+  const int s0 = blockIdx.x * kSites;
+  const int ts = min(kSites, num_sites - s0);
+  int* row = tile + threadIdx.x * stride;
+  unsigned ct = 0u, cm = 0u;  // running sums of this thread's site
+
+  for (int w0 = 0; w0 < num_weeks; w0 += kWeekChunk) {
+    const int wc = min(kWeekChunk, num_weeks - w0);
+    const int row_len = 2 * wc;
+    const int total = ts * row_len;
+    const int* base = hist + ((long long)s0 * num_weeks + w0) * 2;
+    __syncthreads();  // the previous chunk's write-out is done with the tile
+    for (int i0 = 0; i0 < total; i0 += kSites * kUnroll) {
+      int v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kSites + threadIdx.x;
+        if (i < total) {
+          const int r = i / row_len;
+          v[u] = base[(long long)r * num_weeks * 2 + (i - r * row_len)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kSites + threadIdx.x;
+        if (i < total) {
+          const int r = i / row_len;
+          tile[r * stride + (i - r * row_len)] = v[u];
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < ts) {
+      for (int w = 0; w < wc; ++w) {
+        ct += (unsigned)row[2 * w];
+        cm += (unsigned)row[2 * w + 1];
+        row[2 * w] = (int)ct;
+        row[2 * w + 1] = (int)cm;
+      }
+    }
+    __syncthreads();
+    const int outs = ts * wc;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < outs; j += kSites) {
+      const int r = j / wc;
+      const int w = j - r * wc;
+      const int t = tile[r * stride + 2 * w];
+      const int m = tile[r * stride + 2 * w + 1];
+      const long long o = (long long)(s0 + r) * num_weeks + w0 + w;
+      cum_total[o] = t;
+      cum_marked[o] = m;
+      rho[o] = t > 0 ? __fdiv_rn((float)m, fmaxf((float)t, 1.f)) : 0.f;
+    }
+  }
+}
+
+}  // namespace k7_first
+
 using namespace k2_first;
 
 extern "C" int count_tiles_first(const int* dest, int* counts, long long n,
@@ -262,5 +368,37 @@ extern "C" int masked_window_ratio_first(
   k5::masked_window_ratio_kernel<<<blocks, k5::kSites, smem,
                                    (cudaStream_t)stream>>>(
       hist, nmask, dmask, rho, num, den, num_sites, num_weeks, num_queries);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int powerlaw_sample_first(const float* u, const float* cdf,
+                                     int* out, long long n, int num_sites,
+                                     void* stream) {
+  namespace k6 = k6_first;
+  if (n <= 0 || num_sites <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + k6::kThreads - 1) / k6::kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  k6::powerlaw_sample_kernel<<<(unsigned)blocks, k6::kThreads, 0,
+                               (cudaStream_t)stream>>>(u, cdf, out, n,
+                                                       num_sites);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int windowed_ratio_first(const int* hist, float* rho,
+                                    int* cum_total, int* cum_marked,
+                                    int num_sites, int num_weeks,
+                                    void* stream) {
+  namespace k7 = k7_first;
+  if (num_sites <= 0 || num_weeks <= 0) return (int)cudaErrorInvalidValue;
+  const int wc = num_weeks < k7::kWeekChunk ? num_weeks : k7::kWeekChunk;
+  const size_t smem = (size_t)k7::kSites * (2 * wc + 1) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      k7::windowed_ratio_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((num_sites + k7::kSites - 1) / k7::kSites);
+  k7::windowed_ratio_kernel<<<blocks, k7::kSites, smem,
+                              (cudaStream_t)stream>>>(
+      hist, rho, cum_total, cum_marked, num_sites, num_weeks);
   return (int)cudaGetLastError();
 }

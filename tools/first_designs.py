@@ -1,12 +1,14 @@
-"""The first designs of K2 (the stable scatter) and K5 (the masked window
-ratio), built from ``tools/csrc/first_designs.cu``, as yardsticks that are
-timed beside the port's kernels on the same inputs. The port never calls
-them.
+"""The first designs of K2 (the stable scatter), K5 (the masked window
+ratio), K6 (the power-law sampler) and K7 (the MalStone B finalizer), built
+from ``tools/csrc/first_designs.cu``, as yardsticks that are timed beside
+the port's kernels on the same inputs. The port never calls them.
 
     import first_designs as fd       # with tools/ on sys.path
     base = fd.tile_bases(fd.count_tiles(dest, num_dests))
     words_sorted = fd.scatter_tiles(words, dest, base)
     rho, num, den = fd.masked_window_ratio(hist, nmask, dmask)
+    sites = fd.powerlaw_sample(u, cdf)
+    rho, cum_total, cum_marked = fd.windowed_ratio(hist)
 
 K1 and K2 of the first design use its tile of 1,024 records. Every
 function needs CUDA tensors; the checks of ``repro_torch``'s wrappers are
@@ -49,6 +51,8 @@ def library() -> ctypes.CDLL:
     for name, sig in (("count_tiles_first", "ppqiiip"),
                       ("scatter_tiles_first", "ppppqiiip"),
                       ("masked_window_ratio_first", "ppppppiiip"),
+                      ("powerlaw_sample_first", "pppqip"),
+                      ("windowed_ratio_first", "ppppiip"),
                       ("count_scatter_tile_first", "")):
         fn = getattr(lib, name)
         fn.argtypes = [kinds[k] for k in sig]
@@ -107,3 +111,22 @@ def masked_window_ratio(hist: torch.Tensor, num_masks: torch.Tensor,
         rho.data_ptr(), num.data_ptr(), den.data_ptr(), s, w, n,
         _stream(hist)), "masked_window_ratio")
     return rho, num, den
+
+
+def powerlaw_sample(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
+    _run(library().powerlaw_sample_first(
+        u.data_ptr(), cdf.data_ptr(), out.data_ptr(), u.shape[0],
+        cdf.shape[0], _stream(u)), "powerlaw_sample")
+    return out
+
+
+def windowed_ratio(hist: torch.Tensor):
+    s, w, _ = hist.shape
+    rho = torch.empty(s, w, dtype=torch.float32, device=hist.device)
+    cum_total = torch.empty(s, w, dtype=torch.int32, device=hist.device)
+    cum_marked = torch.empty_like(cum_total)
+    _run(library().windowed_ratio_first(
+        hist.data_ptr(), rho.data_ptr(), cum_total.data_ptr(),
+        cum_marked.data_ptr(), s, w, _stream(hist)), "windowed_ratio")
+    return rho, cum_total, cum_marked

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the order kernels K1 and K2 and the query kernel K5 of this
-checkout against another checkout on the same card, in turns.
+"""Time the order kernels K1 and K2, the query kernel K5, the sampler K6
+and the finalizer K7 of this checkout against another checkout on the
+same card, in turns.
 
     python3 tools/kernel_turns.py [--other DIR] [--out FILE]
 
@@ -18,10 +19,20 @@ version or the stable-argsort oracle:
   masks (the mixed batch's size) and 52 alternating-week masks (26 runs
   each, the worst shape), warm (repeated calls) and cold (each call after
   a 256 MB write has evicted the 50 MB L2);
+- ``K6``: ``powerlaw_sample`` of n in {2^17, 2^20, 2^23} uniform draws on
+  the bench's sorted 100,000-site CDF and on the records' unmarked MalGen
+  CDF; ``sample_sites``: the checkout's MalGen sampler on the same inputs
+  (K6 where it routes there, ``torch.searchsorted`` where it does not);
+  ``generate``: the main path's generation of all 8 shards, the part of a
+  batch run that samples sites;
+- ``K7``: ``windowed_ratio`` of the records' ``[100,000, 52, 2]``
+  histogram; ``malstone_b``: the checkout's MalStone B finalize of it;
 - ``first design``: the same inputs through ``tools/first_designs.py``
-  (the first K2 design with its own tile, and the first K5 design);
-- ``library``: a stable ``torch.sort`` and gather (K2's yardstick) and a
-  ``torch.bmm`` of f32 masks and counts (K5's).
+  (the first K2 design with its own tile, and the first K5, K6 and K7
+  designs);
+- ``library``: a stable ``torch.sort`` and gather (K2's yardstick), a
+  ``torch.bmm`` of f32 masks and counts (K5's), ``torch.searchsorted``
+  with the clamp (K6's) and ``torch.cumsum`` of both channels (K7's).
 
 With ``--other DIR`` (a checkout's root, e.g. the parent commit unpacked
 with ``git archive``), the measurement runs four times, each in a fresh
@@ -124,7 +135,8 @@ def cold_ms(fn, samples: int = 3, calls: int = 5) -> list:
 
 
 def main_path_inputs(dev):
-    """(words, dest, hist, growing masks) of the counting main path."""
+    """(words, dest, hist, growing masks, seed) of the counting main
+    path."""
     from repro_torch.common.types import pack_site_week_mark
     from repro_torch.launch.serve_malstone import build_query_mix
     from repro_torch.malgen import MalGenConfig, generate_shards_device
@@ -149,7 +161,7 @@ def main_path_inputs(dev):
         WEEKS, cfg.num_sites)
     masks = (torch.from_numpy(batch.num_masks).to(dev),
              torch.from_numpy(batch.den_masks).to(dev))
-    return words, dest, hist.contiguous(), masks
+    return words, dest, hist.contiguous(), masks, seed
 
 
 def measure(checkout: str, turn: int, emit) -> None:
@@ -160,7 +172,7 @@ def measure(checkout: str, turn: int, emit) -> None:
     from repro_torch.kernels.windowed_ratio import ops as wr
 
     dev = torch.device("cuda")
-    words, dest, hist, (grow_n, grow_d) = main_path_inputs(dev)
+    words, dest, hist, (grow_n, grow_d), seed = main_path_inputs(dev)
 
     def row(inp, name, fn, **extra):
         emit({"checkout": checkout, "turn": turn, "input": inp, "name": name,
@@ -220,6 +232,51 @@ def measure(checkout: str, turn: int, emit) -> None:
         masks = torch.stack([dm, nm]).float()
         cols = hist.permute(2, 1, 0).float()
         row(inp, "K5 library", lambda: torch.bmm(masks, cols))
+
+    # K6, the MalGen sampler and the generation
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+    from repro_torch.malgen import MalGenConfig, generate_shards_device
+    from repro_torch.malgen import power_law_cdf, power_law_weights
+    from repro_torch.malgen import sample_sites
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    cdfs = {"sorted": power_law_cdf(power_law_weights(100_000, device=dev)),
+            "MalGen unmarked": seed.unmarked_cdf}
+    for cname, cdf in cdfs.items():
+        for n in (1 << 17, 1 << 20, 1 << 23):
+            inp = f"{cname} CDF, n=2^{n.bit_length() - 1}"
+            u = torch.rand(n, generator=g, device=dev)
+            got = ps.powerlaw_sample(u, cdf)
+            same(got, ps.powerlaw_sample_plain(u, cdf), f"K6 {inp}")
+            same(fd.powerlaw_sample(u, cdf), got, f"K6 first design {inp}")
+            same(sample_sites(cdf, u), got, f"sample_sites {inp}")
+            row(inp, "K6", lambda: ps.powerlaw_sample(u, cdf))
+            row(inp, "K6 first design", lambda: fd.powerlaw_sample(u, cdf))
+            row(inp, "sample_sites", lambda: sample_sites(cdf, u))
+            row(inp, "K6 library", lambda: torch.searchsorted(
+                cdf, u, right=True).clamp(0, cdf.shape[0] - 1).to(
+                torch.int32))
+    cfg = MalGenConfig()
+    emit({"checkout": checkout, "turn": turn,
+          "input": f"{NODES} x 2^23 records", "name": "generate",
+          "ms": time_ms(lambda: generate_shards_device(
+              seed, cfg, NODES, RPS, device=dev), iters=3)})
+
+    # K7 and the MalStone B finalize
+    from repro_torch.core import spm
+
+    inp = "[100,000, 52, 2] histogram"
+    got = wr.windowed_ratio(hist)
+    same(got, wr.windowed_ratio_plain(hist), "K7")
+    same(fd.windowed_ratio(hist), got, "K7 first design")
+    b = spm.malstone_b(hist)
+    same((b.rho, b.total, b.marked), got, "malstone_b")
+    row(inp, "K7", lambda: wr.windowed_ratio(hist),
+        cold_ms=cold_ms(lambda: wr.windowed_ratio(hist)))
+    row(inp, "K7 first design", lambda: fd.windowed_ratio(hist))
+    row(inp, "malstone_b", lambda: spm.malstone_b(hist))
+    row(inp, "K7 library", lambda: torch.cumsum(hist, dim=1,
+                                                 dtype=torch.int32))
 
 
 def main(argv=None) -> int:
