@@ -87,9 +87,31 @@
    also on the MalGen unmarked CDF at a node's draws and at a service
    step's chunk sizes, the wrapper against ``torch.searchsorted`` with
    the host work of both; (c) the
-   port's ``smoke`` selection (38 scenarios) at the same widths, 8 nodes x
-   2^20 records, into a document that must validate and compare clean
-   against itself; prints its records/s and queries/s.
+   port's ``smoke`` selection (38 scenarios: the overlap pair is left
+   out, since its 64-record chunks would take 16,384 steps a node at this
+   depth) at the same widths, 8 nodes x 2^20 records, into a document
+   that must validate and compare clean against itself; prints its
+   records/s and queries/s.
+9. Overlap (``repro_torch.core.overlap``): (a) K6 launched on a
+   non-default stream equals its plain version at a chunk's draws; the
+   overlap runner at ``MalGenConfig()`` widths, 8 nodes x 8 steps of 2^20
+   records, mapreduce counting at capacity factor 2.0, statistic B, with
+   overlap on and off equals ``malstone_run_streaming(overlap=None)``
+   (histogram, rho bits, every ShuffleStats field), each run launching
+   exactly K6 twice a node a step, K1 and K2 once a step, K3 once a round
+   and K7 once (counts set to 0 just before and read just after); a
+   profile shows generation (K6) and the fold (K1-K3) on two streams;
+   prints, for the engine, on and off, the medians of interleaved runs,
+   records/s, the card's idle share, the time both streams were busy and
+   peak memory, and a step's host-clock breakdown (not gated); (b) the
+   launcher in subprocesses at that width with ``--stream-chunks 8
+   --overlap on|off --check --bench-json`` and one-shot ``--check``: each
+   exits 0 and prints the check line, each document validates, and the
+   CPU oracle's time is printed; (c) the bench's overlap pair through
+   ``run_scenarios`` at 4,096 records a node (64 chunks of 64 records),
+   launches in the path's exact ratios; (d) the runner on ``streams`` and
+   ``mapreduce_combiner`` at 2 steps equal to their streaming engine, K4
+   once a step.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
@@ -101,6 +123,7 @@ exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -133,6 +156,20 @@ BENCH_KERNELS = dict(records_per_node=1 << 23, chunk_records=1 << 20,
                      iters=5, **BENCH_WIDTHS)
 BENCH_SMOKE = dict(records_per_node=1 << 20, chunk_records=1 << 18,
                    iters=3, **BENCH_WIDTHS)
+# phase 9: the overlap runner at the service's widths and depth, the
+# launcher's gate over the same records, the bench's overlap pair at a
+# depth of its own (64 chunks of 64 records a node) and the runner on
+# streams and the combiner at 2 steps
+OVERLAP_CHUNK, OVERLAP_STEPS = 1 << 20, 8   # 8 x 8 x 2^20 records
+OVERLAP_SMALL_STEPS = 2
+OVERLAP_TURNS = 5
+OVERLAP_PAIR = ("streaming_overlap_on", "streaming_overlap_off")
+BENCH_OVERLAP = dict(records_per_node=4096, chunk_records=1 << 18, iters=1,
+                     **BENCH_WIDTHS)
+# kernel names in a profile: generation (K6) and the fold (K1-K3)
+GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
+FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
+                "packed_hist_kernel")
 CAPACITY_FACTOR = 2.0
 KERNEL_INFO = {
     "count_scatter.count": (
@@ -1779,7 +1816,11 @@ def bench_smoke(device) -> None:
 
     scale = registry.Scale(**BENCH_SMOKE)
     ctx = registry.BenchContext(nodes=NODES, device=device)
-    names = registry.preset_scenario_names("smoke")
+    # the overlap pair cuts chunks to 64 records: at this depth that is
+    # 16,384 steps a node for each of its 32 runs, so it runs in phase 9
+    # at a depth of its own
+    names = [n for n in registry.preset_scenario_names("smoke")
+             if n not in OVERLAP_PAIR]
     doc = schema.new_document("torch_smoke_chip", preset="smoke",
                               device=device)
     t0 = time.perf_counter()
@@ -1802,6 +1843,473 @@ def bench_smoke(device) -> None:
                  f"itself")
     log("bench", "records/s " + json.dumps(rates))
     log("bench", "queries/s " + json.dumps(qps))
+
+
+# ------------------------------------------------------------- phase 9
+def merged(spans) -> list:
+    """The union of ``(start, end)`` spans as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def merged_ms(spans) -> float:
+    """Milliseconds covered by the union of ``(start, end)`` spans in
+    microseconds."""
+    return sum(b - a for a, b in merged(spans)) / 1e3
+
+
+def both_ms(spans_a, spans_b) -> float:
+    """Milliseconds during which both sets of spans (microseconds) are
+    busy: the length of the intersection of their unions."""
+    a, b = merged(spans_a), merged(spans_b)
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total / 1e3
+
+
+def stream_profile(drive, device) -> dict:
+    """One call of ``drive`` under ``torch.profiler``, read from its
+    trace: the streams the generation kernels (K6) and the fold kernels
+    (K1-K3) ran on, each stream's busy ms, the ms during which those two
+    streams were busy at once, and the card's busy ms (the union of every
+    kernel, copy and set on any stream) and idle share of the wall time."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    sync(device)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive()
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    spans, gen, fold = {}, set(), set()
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        stream = e.get("args", {}).get("stream")
+        spans.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
+        if e["cat"] == "kernel":
+            if any(k in e["name"] for k in GEN_KERNELS):
+                gen.add(stream)
+            if any(k in e["name"] for k in FOLD_KERNELS):
+                fold.add(stream)
+    busy = merged_ms([x for v in spans.values() for x in v])
+    both = None
+    if len(gen) == 1 and len(fold) == 1 and gen != fold:
+        (g,), (f,) = gen, fold
+        both = both_ms(spans[g], spans[f])
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
+                both_busy_ms=both, gen_streams=sorted(map(str, gen)),
+                fold_streams=sorted(map(str, fold)),
+                stream_busy_ms={str(k): merged_ms(v)
+                                for k, v in spans.items()})
+
+
+def step_rounds(runner) -> list:
+    """Shuffle rounds each step of a mapreduce runner takes, from its
+    chunks: the most records one node holds for one destination (``site %
+    P``) over the bucket capacity, rounded up. Generates every chunk, so
+    call it outside a counted window."""
+    from repro_torch.core.backends.mapreduce import static_capacity
+
+    p = runner.nodes
+    cap = static_capacity(runner.chunk_records, p,
+                          runner.plan.capacity_factor)
+    out = []
+    for k in range(runner.cpd):
+        site = runner._chunk(k).site_id.to(torch.int64)
+        dest = site % p + p * torch.arange(p, device=site.device)[:, None]
+        most = int(torch.bincount(dest.reshape(-1), minlength=p * p).max())
+        out.append(-(-most // cap))
+    return out
+
+
+def runner_launches(runner, rounds) -> dict:
+    """The launches of one ``run_result("B")``: K6 for each node's marked
+    and unmarked draws a step, K1 and K2 a step and K3 a round
+    (mapreduce) or K4 a step (the other backends), K7 once."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.malgen.seeding import chunk_marked_records
+
+    want = dict.fromkeys(launch_counts(), 0)
+    nm = chunk_marked_records(runner.cfg, runner.chunk_records)
+    draws = int(nm > 0) + int(runner.chunk_records - nm > 0)
+    want["powerlaw_sample"] = draws * runner.nodes * runner.cpd
+    if runner.backend == "mapreduce":
+        want["count_scatter.count"] = runner.cpd
+        want["count_scatter.scatter"] = runner.cpd
+        want["segment_hist.packed"] = sum(rounds)
+    else:
+        want["segment_hist"] = runner.cpd
+    want["windowed_ratio"] = 1
+    return want
+
+
+def same_result(name: str, got, want, got_stats, want_stats) -> None:
+    """Equal totals, marks, rho bits and every ShuffleStats field."""
+    check(torch.equal(got.total, want.total)
+          and torch.equal(got.marked, want.marked),
+          f"{name}: histogram differs from the streaming engine")
+    check(torch.equal(got.rho.view(torch.int32), want.rho.view(torch.int32)),
+          f"{name}: rho bits differ from the streaming engine")
+    if want_stats is None:
+        check(got_stats is None, f"{name}: stats where there are none")
+    else:
+        check([int(x) for x in got_stats] == [int(x) for x in want_stats],
+              f"{name}: ShuffleStats {[int(x) for x in got_stats]} != "
+              f"{[int(x) for x in want_stats]}")
+
+
+def overlap_k6_on_side_stream(seed, cfg, device) -> None:
+    """K6 launched under a non-default stream, at a chunk's marked and
+    unmarked draws, equals its plain version."""
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+    from repro_torch.malgen.seeding import chunk_marked_records, draw_events
+
+    nm = chunk_marked_records(cfg, OVERLAP_CHUNK)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    for stream, cdf, n in (("chunk_marked", seed.marked_cdf, nm),
+                           ("chunk_unmarked", seed.unmarked_cdf,
+                            OVERLAP_CHUNK - nm)):
+        u = draw_events(seed.rng_seed, stream, 3, n, cfg, device).u_site
+        with torch.cuda.stream(side):
+            got = ps.powerlaw_sample(u, cdf)
+        side.synchronize()
+        exact(f"K6 on a side stream, {stream} n={n}", got,
+              ps.powerlaw_sample_plain(u, cdf))
+    log("overlap", f"K6 on a non-default stream equals its plain version "
+                   f"at a chunk's {nm:,} marked and {OVERLAP_CHUNK - nm:,} "
+                   f"unmarked draws")
+
+
+def step_breakdown(runner, device) -> dict:
+    """Where a step's time goes, on the host's clock, over one pass of the
+    serialised schedule (overlap off): enqueueing the generation, waiting
+    for its device work, the fold (its host work and the round loop's own
+    waits for the counts) and waiting for the fold's last device work.
+    Medians over the steps, ms."""
+    from repro_torch.core.streaming import state_init
+
+    main = torch.cuda.current_stream(device)
+    gen = torch.cuda.Stream(device)
+    state = state_init(runner.backend, runner.nodes, runner.s_pad,
+                       runner.num_weeks, device)
+    gen.wait_stream(main)
+    sync(device)
+    parts = {"generate_enqueue": [], "generate_wait": [], "fold_host": [],
+             "fold_wait": []}
+    for k in range(runner.cpd):
+        t0 = time.perf_counter()
+        chunk, ready = runner._generate_on(gen, k, main)
+        t1 = time.perf_counter()
+        gen.synchronize()
+        t2 = time.perf_counter()
+        main.wait_event(ready)
+        state = runner._fold(state, chunk)
+        t3 = time.perf_counter()
+        main.synchronize()
+        t4 = time.perf_counter()
+        for key, a, b in (("generate_enqueue", t0, t1),
+                          ("generate_wait", t1, t2), ("fold_host", t2, t3),
+                          ("fold_wait", t3, t4)):
+            parts[key].append((b - a) * 1e3)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    log("overlap", f"a step (off, host clock, median ms of {runner.cpd}): "
+                   + json.dumps(med))
+    return med
+
+
+def overlap_runner(device) -> dict:
+    """(a) The overlap runner at full width, 8 nodes x 8 steps of 2^20
+    records, mapreduce counting at capacity factor 2.0, statistic B: on
+    and off equal ``malstone_run_streaming(overlap=None)`` (histogram, rho
+    bits, ShuffleStats) with exact launch counts, generation and fold on
+    two streams; interleaved timings, records/s, idle share, both-busy
+    time and peak memory, printed and not gated."""
+    from repro_torch.common.types import ExchangePlan
+    from repro_torch.core import malstone_run_streaming
+    from repro_torch.core.overlap import OverlapStreamingRunner
+    from repro_torch.core.streaming import streaming_histogram_generate
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.malgen import MalGenConfig, make_seed_streaming
+
+    cfg = MalGenConfig()
+    num_chunks = NODES * OVERLAP_STEPS
+    total = num_chunks * OVERLAP_CHUNK
+    plan = ExchangePlan(impl="counting", capacity_factor=CAPACITY_FACTOR,
+                        histogram_impl="kernel")
+    seed = make_seed_streaming(0, cfg, num_chunks, OVERLAP_CHUNK,
+                               device=device)
+    overlap_k6_on_side_stream(seed, cfg, device)
+    runner = OverlapStreamingRunner(
+        seed, cfg, nodes=NODES, num_chunks=num_chunks,
+        chunk_records=OVERLAP_CHUNK, backend="mapreduce", plan=plan,
+        device=device)
+    rounds = step_rounds(runner)
+    want_launches = runner_launches(runner, rounds)
+
+    def engine():
+        return malstone_run_streaming(
+            seed, cfg.num_sites, nodes=NODES, cfg=cfg, num_chunks=num_chunks,
+            chunk_records=OVERLAP_CHUNK, backend="mapreduce", statistic="B",
+            plan=plan, device=device, return_shuffle_stats=True)
+
+    sync(device)
+    reset_launch_counts()
+    want, want_stats = engine()
+    sync(device)
+    check(launch_counts() == want_launches,
+          f"streaming engine: launches {launch_counts()}, expected "
+          f"{want_launches}")
+    check(int(want_stats.overflow) == 0 and int(want_stats.sent) == total,
+          f"streaming engine: sent {int(want_stats.sent)} of {total}")
+    want_hist, _ = streaming_histogram_generate(
+        runner.seed, cfg, runner.s_pad, parts=NODES,
+        chunks_per_node=OVERLAP_STEPS, chunk_records=OVERLAP_CHUNK,
+        backend="mapreduce", plan=plan)
+    out = {"rounds": rounds, "launches": want_launches, "peak_gib": {},
+           "base_gib": {}, "profile": {}}
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    engine()
+    sync(device)
+    out["peak_gib"]["engine"] = torch.cuda.max_memory_allocated(device) / 2**30
+    out["base_gib"]["engine"] = base / 2**30
+    prof = stream_profile(engine, device)
+    check(prof["gen_streams"] == prof["fold_streams"]
+          and len(prof["gen_streams"]) == 1,
+          f"engine: generation on {prof['gen_streams']}, fold on "
+          f"{prof['fold_streams']}: not one stream")
+    out["profile"]["engine"] = prof
+    log("overlap", f"engine (overlap=None): peak "
+                   f"{out['peak_gib']['engine']:.3f} GiB (before "
+                   f"{out['base_gib']['engine']:.3f}); profile "
+                   + json.dumps(prof))
+    for ov in (True, False):
+        name = f"overlap={'on' if ov else 'off'}"
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        reset_launch_counts()
+        got, got_stats = runner.run_result("B", overlap=ov)
+        sync(device)
+        got_launches = launch_counts()
+        out["peak_gib"][name] = (torch.cuda.max_memory_allocated(device)
+                                 / 2**30)
+        out["base_gib"][name] = base / 2**30
+        check(got_launches == want_launches,
+              f"{name}: launches {got_launches}, expected {want_launches}")
+        same_result(name, got, want, got_stats, want_stats)
+        hist, _ = runner.run(overlap=ov)
+        check(torch.equal(hist, want_hist),
+              f"{name}: padded histogram differs from the streaming engine")
+        check(bool(torch.isfinite(got.rho).all()) and got.rho.shape
+              == (cfg.num_sites, 52), f"{name}: rho not finite or shape")
+        prof = stream_profile(lambda: runner.run_result("B", overlap=ov),
+                              device)
+        check(len(prof["gen_streams"]) == 1 and len(prof["fold_streams"])
+              == 1 and prof["gen_streams"] != prof["fold_streams"],
+              f"{name}: generation on streams {prof['gen_streams']}, fold "
+              f"on {prof['fold_streams']}: not two streams")
+        out["profile"][name] = prof
+        log("overlap", f"{name}: equals the streaming engine (histogram, "
+                       f"rho bits, ShuffleStats {[int(x) for x in got_stats]}"
+                       f"); launches {got_launches}; peak "
+                       f"{out['peak_gib'][name]:.3f} GiB (before "
+                       f"{out['base_gib'][name]:.3f}); profile "
+                       + json.dumps(prof))
+    log("overlap", f"rounds a step {rounds}; K3 launches a run "
+                   f"{sum(rounds)}")
+    out["step_ms"] = step_breakdown(runner, device)
+
+    modes = {"on": lambda: runner.run_result("B", overlap=True),
+             "off": lambda: runner.run_result("B", overlap=False),
+             "engine": engine}
+    order = list(modes)
+    samples = {m: [] for m in modes}
+    for turn in range(OVERLAP_TURNS):
+        for m in order[turn % 3:] + order[:turn % 3]:
+            samples[m].append(time_ms(modes[m], device, iters=1, warmup=0))
+    med = {m: statistics.median(v) for m, v in samples.items()}
+    out["run_ms"] = samples
+    out["median_ms"] = med
+    out["records_per_s"] = {m: total / (v / 1e3) for m, v in med.items()}
+    log("overlap", f"{total:,} records, {OVERLAP_TURNS} interleaved turns; "
+                   f"run ms {json.dumps(samples)}; medians "
+                   f"{json.dumps(med)}; records/s "
+                   f"{json.dumps(out['records_per_s'])}")
+    del runner, want_hist
+    return out
+
+
+def overlap_gate(device) -> dict:
+    """(b) The launcher at the same width in subprocesses: ``--stream-chunks
+    8 --overlap on|off --check --bench-json`` and a one-shot ``--check``;
+    each must exit 0 and print the check line, the documents validate."""
+    import tempfile
+
+    from repro_torch.bench import schema
+
+    rpn = OVERLAP_STEPS * OVERLAP_CHUNK
+    base = [sys.executable, "-m", "repro_torch.launch.malstone",
+            "--nodes", str(NODES), "--records-per-node", str(rpn),
+            "--sites", "100000", "--entities", "1000000",
+            "--backend", "mapreduce", "--exchange-impl", "counting",
+            "--capacity-factor", str(CAPACITY_FACTOR), "--runs", "3",
+            "--check"]
+    runs = {"overlap on": ["--stream-chunks", str(OVERLAP_STEPS),
+                           "--overlap", "on"],
+            "overlap off": ["--stream-chunks", str(OVERLAP_STEPS),
+                            "--overlap", "off"],
+            "one-shot": []}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        for name, flags in runs.items():
+            path = pathlib.Path(tmp) / f"BENCH_gate_{len(out)}.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                base + flags + ["--bench-json", str(path)],
+                capture_output=True, text=True, timeout=400, env=env,
+                cwd=ROOT)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"launcher {name} exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            lines = proc.stdout.splitlines()
+            check(any("bit-equals the single-device oracle" in line
+                      for line in lines),
+                  f"launcher {name}: no check line")
+            doc = schema.load_document(path)
+            (row,) = doc["results"]
+            check(row["params"]["overlap"] == (flags[-1] if flags
+                                               else "auto"),
+                  f"launcher {name}: params {row['params']}")
+            for line in lines:
+                if any(k in line for k in ("median", "--check", "oracle:",
+                                           "shuffle:")):
+                    log("gate", f"{name}: {line.strip()}")
+            out[name] = dict(wall_s=wall, us_per_call=row["us_per_call"],
+                             records_per_s=row["records_per_s"],
+                             scenario=row["scenario"])
+            log("gate", f"{name}: exit 0 in {wall:.1f} s; document "
+                        f"{row['scenario']} validates; " + json.dumps(
+                            out[name]))
+    return out
+
+
+def overlap_bench_pair(device) -> dict:
+    """(c) The bench's overlap pair through ``run_scenarios`` at the full
+    widths and 4,096 records a node (64 chunks of 64 records), with the
+    launch counts set to 0 just before and read just after."""
+    from repro_torch.bench import registry, schema
+    from repro_torch.bench.run import run_scenarios
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    scale = registry.Scale(**BENCH_OVERLAP)
+    ctx = registry.BenchContext(nodes=NODES, device=device)
+    doc = schema.new_document("torch_overlap_chip", device=device)
+    sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    skipped = run_scenarios(list(OVERLAP_PAIR), scale, ctx, doc)
+    wall = time.perf_counter() - t0
+    sync(device)
+    got = launch_counts()
+    check(not skipped and len(doc["results"]) == 2,
+          f"overlap pair: {len(doc['results'])} rows, skipped {skipped}")
+    schema.validate_document(doc)
+    ((runner, chunk, num_chunks),) = ctx._overlap.values()
+    runs = got["windowed_ratio"]
+    want = {k: runs * v for k, v in
+            runner_launches(runner, step_rounds(runner)).items()}
+    check(runs > 0 and got == want,
+          f"overlap pair: launches {got}, expected {want} ({runs} runs)")
+    rows = {r["scenario"]: r for r in doc["results"]}
+    out = {n: dict(us_per_call=r["us_per_call"],
+                   records_per_s=r["records_per_s"],
+                   rel_dispersion=r["rel_dispersion"])
+           for n, r in rows.items()}
+    log("bench", f"overlap pair: {num_chunks} chunks of {chunk} records, "
+                 f"{runs} runs in {wall:.1f} s, launches {got}; "
+                 + json.dumps(out))
+    return out
+
+
+def overlap_small_backends(device) -> None:
+    """(d) The runner on streams and the combiner at 2 steps of 8 x 2^20
+    records, on and off, equal to their streaming engine, with K4 counted
+    once a step."""
+    from repro_torch.common.types import ExchangePlan
+    from repro_torch.core import malstone_run_streaming
+    from repro_torch.core.overlap import OverlapStreamingRunner
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.malgen import MalGenConfig, make_seed_streaming
+
+    cfg = MalGenConfig()
+    num_chunks = NODES * OVERLAP_SMALL_STEPS
+    plan = ExchangePlan(histogram_impl="kernel")
+    seed = make_seed_streaming(1, cfg, num_chunks, OVERLAP_CHUNK,
+                               device=device)
+    for backend in ("streams", "mapreduce_combiner"):
+        runner = OverlapStreamingRunner(
+            seed, cfg, nodes=NODES, num_chunks=num_chunks,
+            chunk_records=OVERLAP_CHUNK, backend=backend, plan=plan,
+            device=device)
+        want_launches = runner_launches(runner, [])
+        want, want_stats = malstone_run_streaming(
+            seed, cfg.num_sites, nodes=NODES, cfg=cfg,
+            num_chunks=num_chunks, chunk_records=OVERLAP_CHUNK,
+            backend=backend, statistic="B", plan=plan, device=device,
+            return_shuffle_stats=True)
+        for ov in (True, False):
+            name = f"{backend} overlap={'on' if ov else 'off'}"
+            sync(device)
+            reset_launch_counts()
+            got, got_stats = runner.run_result("B", overlap=ov)
+            sync(device)
+            check(launch_counts() == want_launches,
+                  f"{name}: launches {launch_counts()}, expected "
+                  f"{want_launches}")
+            same_result(name, got, want, got_stats, want_stats)
+            ms = time_ms(lambda: runner.run_result("B", overlap=ov), device,
+                         iters=1, warmup=0)
+            log("overlap", f"{name}: equals its streaming engine at "
+                           f"{OVERLAP_SMALL_STEPS} steps; launches "
+                           f"{want_launches}; {ms:.3f} ms")
+
+
+def overlap(device) -> dict:
+    """Phase 9: (a) the runner, (b) the launcher's gate, (c) the bench's
+    overlap pair, (d) the runner on streams and the combiner."""
+    t0 = time.perf_counter()
+    out = overlap_runner(device)
+    out["gate"] = overlap_gate(device)
+    out["bench"] = overlap_bench_pair(device)
+    overlap_small_backends(device)
+    log("overlap", f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1837,6 +2345,10 @@ def main() -> int:
         kernels += bench_kernel_pairs(device, edge, mp)
         bench_smoke(device)
         log("bench", f"phase 8 took {time.perf_counter() - t8:.1f} s")
+        ov = overlap(device)
+        for row in kernels:
+            if row["name"] in ov["launches"]:
+                row["overlap_launches"] = ov["launches"][row["name"]]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -26,7 +26,10 @@ scenario. The registry covers:
 - the **sweeps** ``sweep_records_x{1,2,4}``, ``sweep_mesh_p{1,2,4}`` and
   ``sweep_gen_device_p{1,2,4}``;
 - **serving** — ``serving_ingest_latency``, ``serving_query_batch``
-  (p50/p95/p99 in ``derived``) and ``serving_sustained_qps``.
+  (p50/p95/p99 in ``derived``) and ``serving_sustained_qps``;
+- the **overlap pair** ``streaming_overlap_{on,off}``: the double-buffered
+  per-chunk runner (``core/overlap.py``) against the same calls
+  serialised, in one interleaved measurement.
 
 The P nodes are a leading axis on one device, so a mesh sweep runs at any
 node count (the JAX package skips sizes above its device count). Random
@@ -34,8 +37,7 @@ streams that JAX derives from ``jax.random.key(k)`` come from the port's
 integer ``rng_seed=k``: the same seed gives other records than JAX.
 
 Not registered yet, each with the ROADMAP.md Queue 1 item that brings
-it: ``streaming_overlap_{on,off}`` (item 4, ``core/overlap.py``),
-``resume_overhead_{nockpt,ckpt,resume}`` and
+it: ``resume_overhead_{nockpt,ckpt,resume}`` and
 ``faulty_run_{transient,badhost}`` (item 5, ``core/resume.py``, the
 checkpoint store and ``faults/``), ``sweep_multiproc_p{1,2,4}`` (item 7,
 the multi-process launcher).
@@ -118,6 +120,8 @@ class BenchContext:
         self._logs: dict = {}
         self._seeds: dict = {}
         self._services: dict = {}
+        self._overlap: dict = {}
+        self._overlap_timings: dict = {}
 
     def cfg(self, scale: Scale):
         from repro_torch.malgen import MalGenConfig
@@ -572,6 +576,82 @@ for _p in SWEEP_MESH_SIZES:
                 "generation": "fused"})
     def _sweep_gen_device(scale, ctx, *, _p=_p):
         return _run_e2e(scale, ctx, generation="fused", nodes=_p)
+
+
+# --------------------------------------------------------- overlap pipeline
+# The double-buffered per-chunk runner (repro_torch.core.overlap) against
+# the same calls serialised. The pair uses many small chunks (the preset's
+# chunk size cut to OVERLAP_CHUNK_RECORDS), as the JAX package's does: what
+# overlap hides is per-chunk host work (launches, the shuffle's per-round
+# count reads) behind device work in flight, so it grows with the chunk
+# count. Equality of the two rows is held by tests, not here.
+OVERLAP_CHUNK_RECORDS = 64
+
+
+def _overlap_runner(scale: Scale, ctx: BenchContext):
+    from repro_torch.core.overlap import OverlapStreamingRunner
+    from repro_torch.malgen import make_seed_streaming
+    chunk = min(OVERLAP_CHUNK_RECORDS, scale.chunk_records)
+    cpd = max(1, scale.records_per_node // chunk)
+    num_chunks = ctx.nodes * cpd
+    key = (ctx.nodes, num_chunks, chunk, scale.num_sites,
+           scale.num_entities, scale.marked_event_fraction)
+    if key not in ctx._overlap:
+        seed = make_seed_streaming(6, ctx.cfg(scale), num_chunks, chunk,
+                                   device=ctx.device)
+        runner = OverlapStreamingRunner(
+            seed, ctx.cfg(scale), nodes=ctx.nodes, num_chunks=num_chunks,
+            chunk_records=chunk, backend="mapreduce", device=ctx.device)
+        ctx._overlap[key] = (runner, chunk, num_chunks)
+    return ctx._overlap[key]
+
+
+def _overlap_timings(scale: Scale, ctx: BenchContext):
+    """One interleaved on/off measurement shared by both rows: alternating
+    the two per iteration keeps drift in the machine's load out of their
+    difference, which is what the pair measures."""
+    import time
+
+    from repro_torch.bench.timing import synchronize, timing_from_samples
+    key = (ctx.nodes, scale.records_per_node, scale.num_entities,
+           scale.marked_event_fraction)
+    if key not in ctx._overlap_timings:
+        runner, chunk, num_chunks = _overlap_runner(scale, ctx)
+        samples = {True: [], False: []}
+        stats = {}
+        for ov in (True, False):            # build and warm both paths
+            runner.run_result("B", overlap=ov)
+        for i in range(max(scale.iters * 5, 15)):
+            # alternate which path goes first so the order's bias cancels
+            for ov in (True, False) if i % 2 == 0 else (False, True):
+                synchronize()
+                t0 = time.perf_counter()
+                _, stats[ov] = runner.run_result("B", overlap=ov)
+                synchronize()
+                samples[ov].append((time.perf_counter() - t0) * 1e6)
+        ctx._overlap_timings[key] = {
+            ov: (timing_from_samples(samples[ov], warmup_iters=1,
+                                     steady=True),
+                 stats[ov], chunk, num_chunks)
+            for ov in (True, False)}
+    return ctx._overlap_timings[key]
+
+
+for _ov in (True, False):
+    @_register(f"streaming_overlap_{'on' if _ov else 'off'}", "overlap",
+               {"backend": "mapreduce", "statistic": "B",
+                "engine": "streaming", "overlap": "on" if _ov else "off"})
+    def _scenario_overlap(scale, ctx, *, _o=_ov):
+        # both rows share one cached runner and one interleaved
+        # measurement: the schedule is the only variable
+        timing, stats, chunk, num_chunks = _overlap_timings(scale, ctx)[_o]
+        return ScenarioResult(
+            timing=timing, records=num_chunks * chunk,
+            derived={"overlap": _o, "num_chunks": num_chunks,
+                     "shuffle_rounds": int(stats.rounds),
+                     "shuffle_overflow": int(stats.overflow),
+                     "shuffle_bytes_exchanged": int(stats.bytes_exchanged)},
+            effective={"nodes": ctx.nodes, "chunk_records": chunk})
 
 
 # ----------------------------------------------------------------- serving

@@ -14,7 +14,8 @@ partitioned). The JAX mesh becomes the ``nodes`` count: a flat log of
 (d+1)*n)``, exactly the shards a mesh of ``nodes`` devices would hold.
 
 The drivers run on the card unless ``device="cpu"`` is passed; with no
-CUDA device and no ``device="cpu"`` they raise.
+CUDA device and no ``device="cpu"`` they raise. ``malstone_single_device``
+is the plain one-device oracle they are checked against.
 """
 
 from __future__ import annotations
@@ -208,6 +209,22 @@ def malstone_run_generated(seed, cfg, *, nodes: int, records_per_shard: int,
                       num_weeks, plan, return_shuffle_stats)
 
 
+def malstone_single_device(log: EventLog, num_sites: int,
+                           statistic: str = "B",
+                           num_weeks: int = WEEKS_PER_YEAR,
+                           histogram_fn=None) -> SpmResult:
+    """Reference single-device path (the "fits in a database" case of §1):
+    the plain ``spm.site_week_histogram`` of a flat log, then the
+    finalizer, on the device the log lies on.
+
+    On a CUDA log the B finalizer runs K7 (``core/spm.py:malstone_b``), so
+    an oracle meant to share no kernel with the run it checks is handed a
+    CPU copy of the log, as the launcher's ``--check`` does."""
+    hist_fn = histogram_fn or spm_lib.site_week_histogram
+    hist = hist_fn(log, num_sites, num_weeks)
+    return _finalize(hist, statistic)
+
+
 def pad_log_to(log: EventLog, target: int) -> EventLog:
     """Pad a flat log with invalid rows up to ``target`` records."""
     n = log.num_records
@@ -255,7 +272,13 @@ def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
     - An ``EventLog`` (flat, node-major): padded with invalid rows so every
       node folds whole chunks.
 
-    ``overlap`` is not ported (``NotImplementedError``).
+    ``overlap`` picks how seed mode runs: ``None`` (default) is the loop
+    above; ``True`` / ``False`` go through
+    :class:`~repro_torch.core.overlap.OverlapStreamingRunner` (on the card,
+    on: chunk k+1 generated on a second CUDA stream while chunk k is
+    exchanged and reduced; off: the same calls, synchronised after each).
+    All three give the same histogram, rho bits and ShuffleStats. Timing
+    loops should hold their own runner (this path builds one per call).
     """
     from repro_torch.core.streaming import (
         streaming_histogram_from_log,
@@ -263,12 +286,11 @@ def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
     )
     from repro_torch.malgen.seeding import SeedInfo
 
-    if overlap is not None:
-        raise NotImplementedError(
-            "overlap= pipelines chunk generation with the exchange "
-            "(repro/core/overlap.py), which is not ported yet (ROADMAP.md "
-            "Queue 1, item 4)")
     _check_backend(backend)
+    if overlap is not None and not isinstance(seed_or_log, SeedInfo):
+        raise ValueError(
+            "overlap= requires seed-mode streaming (a SeedInfo source);"
+            " the log path has no generation stage to pipeline")
     if chunk_records < 1:
         raise ValueError(f"chunk_records must be >= 1, got {chunk_records}")
     device = nodes_lib.resolve_device(device)
@@ -280,6 +302,16 @@ def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
         if num_chunks % nodes:
             raise ValueError(f"num_chunks ({num_chunks}) must divide over "
                              f"the {nodes} nodes")
+        if overlap is not None:
+            from repro_torch.core.overlap import OverlapStreamingRunner
+
+            runner = OverlapStreamingRunner(
+                seed_or_log, cfg, nodes=nodes, num_chunks=num_chunks,
+                chunk_records=chunk_records, num_sites=num_sites,
+                backend=backend, num_weeks=num_weeks, plan=plan,
+                device=device)
+            result, stats = runner.run_result(statistic, overlap=overlap)
+            return (result, stats) if return_shuffle_stats else result
         hist, stats = streaming_histogram_generate(
             seed_or_log.to(device), cfg, s_pad, parts=nodes,
             chunks_per_node=num_chunks // nodes, chunk_records=chunk_records,

@@ -77,3 +77,51 @@ def malstone_b_fixed_denominator(hist: torch.Tensor) -> SpmResult:
     den = total_year.expand(cum_marked.shape).contiguous()
     return SpmResult(rho=safe_ratio(cum_marked, den),
                      total=den, marked=cum_marked)
+
+
+def malstone_a_from_log(log: EventLog, num_sites: int,
+                        num_weeks: int = WEEKS_PER_YEAR) -> SpmResult:
+    return malstone_a(site_week_histogram(log, num_sites, num_weeks))
+
+
+def malstone_b_from_log(log: EventLog, num_sites: int,
+                        num_weeks: int = WEEKS_PER_YEAR) -> SpmResult:
+    return malstone_b(site_week_histogram(log, num_sites, num_weeks))
+
+
+# ----------------------------------------------------------------------------
+# Set-semantics oracle (Definition 1 over entity sets). O(records * entities)
+# memory and time: for tests and small data only.
+# ----------------------------------------------------------------------------
+
+def spm_entity_sets(site_id, entity_id, timestamp,
+                    entity_mark_time, num_sites: int,
+                    exp_start: int, exp_end: int,
+                    mon_start: int, mon_end: int,
+                    num_entities: int) -> torch.Tensor:
+    """rho_j per Definition 1 with true entity sets.
+
+    ``entity_mark_time[e]`` is the time entity e became marked
+    (``NEVER_MARKED`` if never). A_j holds the entities that visit j within
+    ``[exp_start, exp_end)`` strictly before their mark time; B_j the
+    members of A_j whose mark time falls in ``[mon_start, mon_end)``.
+    """
+    visit_in_exp = (timestamp >= exp_start) & (timestamp < exp_end)
+    mark_t = entity_mark_time[entity_id.to(torch.int64)]
+    qualifies = visit_in_exp & (timestamp < mark_t)
+
+    # membership matrix: a max over the records of each (site, entity) pair
+    pair = site_id.to(torch.int64) * num_entities + entity_id
+    in_a = torch.full((num_sites * num_entities,),
+                      torch.iinfo(torch.int32).min, dtype=torch.int32,
+                      device=site_id.device)
+    in_a.scatter_reduce_(0, pair, qualifies.to(torch.int32), "amax")
+    # an empty pair keeps the dtype's minimum, as JAX's segment_max fills it
+    in_a = torch.clamp(in_a, min=0).reshape(num_sites, num_entities)
+
+    marked_in_mon = ((entity_mark_time >= mon_start)
+                     & (entity_mark_time < mon_end))
+    a_size = in_a.sum(dim=1, dtype=torch.int32)
+    b_size = (in_a * marked_in_mon[None, :].to(torch.int32)).sum(
+        dim=1, dtype=torch.int32)
+    return safe_ratio(b_size, a_size)

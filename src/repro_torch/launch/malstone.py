@@ -16,16 +16,28 @@ records in N chunks, regenerated from a streaming seed in every run
 (``engine="streaming"``), or, with ``--gen-device``, cut from the shard it
 generates in place (``engine="generated_streaming"``). On the card each
 run is timed with CUDA events and a synchronize.
+
+``--overlap {on,off}`` drives the seed-mode streaming run through the
+double-buffered per-chunk runner (``repro_torch.core.overlap``: on the
+card, chunk k+1 generated on a second CUDA stream while chunk k is
+exchanged and reduced; ``off`` the same calls serialised). ``--check``
+asserts that the run's rho bit-equals the single-device oracle computed on
+the CPU over the same records (exit 1 on a mismatch), and ``--bench-json
+PATH`` writes the run as a BENCH document (``repro_torch/bench/
+schema.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import statistics
 import time
 
 import torch
 
+from repro_torch.bench import schema
+from repro_torch.bench.timing import timing_from_samples
 from repro_torch.common.nodes import resolve_device
 from repro_torch.common.types import (
     EXCHANGE_IMPLS,
@@ -33,11 +45,13 @@ from repro_torch.common.types import (
     ExchangePlan,
     WEEKS_PER_YEAR,
 )
-from repro_torch.core import run
+from repro_torch.core import malstone_single_device, run
 from repro_torch.core.backends import resolve_exchange_impl
+from repro_torch.core.overlap import OverlapStreamingRunner
 from repro_torch.core.runner import RUN_BACKENDS, _pad_sites
 from repro_torch.malgen import (
     MalGenConfig,
+    generate_chunked_log,
     generate_shards_device,
     make_seed,
     make_seed_streaming,
@@ -100,6 +114,24 @@ def main(argv=None):
     ap.add_argument("--stream-chunks", type=int, default=0, metavar="N",
                     help="stream each node's records in N chunks (0 ="
                          " one-shot)")
+    ap.add_argument("--overlap", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="streaming execution strategy: 'auto' runs the"
+                         " streaming engine's loop; 'on' double-buffers per"
+                         " chunk (chunk k+1 generated on a second CUDA"
+                         " stream while chunk k is exchanged and reduced;"
+                         " repro_torch.core.overlap); 'off' runs the same"
+                         " per-chunk calls strictly serialised (the control"
+                         " for measuring the overlap). All three give the"
+                         " same bits; requires --stream-chunks")
+    ap.add_argument("--check", action="store_true",
+                    help="after the timed runs, assert the computed rho"
+                         " bit-equals the single-device oracle run on the"
+                         " CPU over the same records (exit 1 on mismatch)")
+    ap.add_argument("--bench-json", default=None, metavar="PATH",
+                    help="also write this run as a BENCH_*.json document"
+                         " (schema: repro_torch/bench/schema.py) for"
+                         " repro_torch.bench.compare")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.runs < 1:
@@ -108,6 +140,17 @@ def main(argv=None):
             args.stream_chunks
             and args.records_per_node % args.stream_chunks):
         ap.error("--stream-chunks must divide --records-per-node")
+    if args.overlap != "auto" and not args.stream_chunks:
+        ap.error("--overlap on/off pipelines the streaming engine;"
+                 " pass --stream-chunks")
+    if args.overlap != "auto" and args.gen_device:
+        ap.error("--overlap on/off pipelines the seed-mode streaming"
+                 " engine, which regenerates its chunks; --gen-device cuts"
+                 " them from shards generated in place")
+    if args.check and args.gen_device:
+        ap.error("--check compares against the single-device oracle over"
+                 " the materialized records; it does not cover"
+                 " --gen-device")
     chunk = (args.records_per_node // args.stream_chunks
              if args.stream_chunks else 0)
 
@@ -135,7 +178,21 @@ def main(argv=None):
           f"(scatter payload {seed.seed_bytes / 1e6:.1f} MB)")
     kw = dict(nodes=args.nodes, plan=plan, statistic=args.statistic,
               backend=args.backend, device=device, return_shuffle_stats=True)
-    if streaming_seed:
+    if streaming_seed and args.overlap != "auto":
+        print(f"  streaming: {args.stream_chunks} chunks of {chunk:,} per "
+              f"node, regenerated in every run, "
+              + ("overlap pipeline" if args.overlap == "on"
+                 else "per-chunk serialised"))
+        # one runner for every timed run
+        runner = OverlapStreamingRunner(
+            seed, cfg, nodes=args.nodes, num_chunks=num_chunks,
+            chunk_records=chunk, num_sites=cfg.num_sites,
+            backend=args.backend, plan=plan, device=device)
+        overlap_on = args.overlap == "on"
+
+        def fn():
+            return runner.run_result(args.statistic, overlap=overlap_on)
+    elif streaming_seed:
         print(f"  streaming: {args.stream_chunks} chunks of {chunk:,} per "
               f"node, regenerated in every run")
 
@@ -172,8 +229,11 @@ def main(argv=None):
     if args.stream_chunks:
         mode = (f"gen-device stream x{args.stream_chunks}" if args.gen_device
                 else f"stream x{args.stream_chunks}")
+        if args.overlap != "auto":
+            mode += f" overlap={args.overlap}"
     print(f"MalStone {args.statistic} [{args.backend}, {mode}] median "
           f"{statistics.median(samples):.3f} ms over {args.runs} runs")
+    shuffle_derived = None
     if stats is not None:
         impl = resolve_exchange_impl(plan.impl,
                                      _pad_sites(args.sites, args.nodes),
@@ -183,8 +243,72 @@ def main(argv=None):
               f"deferred={int(stats.residual)} "
               f"bytes={int(stats.bytes_exchanged):,} "
               f"overflow={int(stats.overflow)}")
+        shuffle_derived = {
+            "capacity_factor": args.capacity_factor,
+            "shuffle_impl": impl,
+            "shuffle_packed": impl != "columns",
+            "shuffle_rounds": int(stats.rounds),
+            "shuffle_capacity": int(stats.capacity),
+            "shuffle_sent": int(stats.sent),
+            "shuffle_deferred": int(stats.residual),
+            "shuffle_overflow": int(stats.overflow),
+            "shuffle_bytes_exchanged": int(stats.bytes_exchanged),
+        }
     print(f"  rho {tuple(result.rho.shape)} mean "
           f"{float(result.rho.double().mean()):.6f}")
+
+    if args.check:
+        # the oracle's records are the run's, made on the run's device; the
+        # oracle itself runs on a CPU copy, so it shares no kernel with the
+        # run it checks
+        t0 = time.perf_counter()
+        olog = (generate_chunked_log(seed, cfg, num_chunks, chunk)
+                if streaming_seed else log)
+        olog = olog.map(lambda c: c.cpu())
+        oracle = malstone_single_device(olog, cfg.num_sites, args.statistic)
+        got = result.rho.cpu().numpy()
+        ref = oracle.rho.numpy()
+        if not (got.shape == ref.shape
+                and (got.view("int32") == ref.view("int32")).all()):
+            raise SystemExit(
+                f"--check FAILED: rho {got!r} != single-device oracle "
+                f"{ref!r}")
+        print(f"--check: rho[{ref.size}] bit-equals the single-device "
+              f"oracle (mean {float(ref.mean()):.6f})")
+        print(f"  oracle: {olog.num_records:,} records, made on "
+              f"{device.type} and reduced on the CPU in "
+              f"{time.perf_counter() - t0:.3f} s")
+
+    if args.bench_json:
+        engine = "streaming" if args.stream_chunks else "oneshot"
+        stat_slug = args.statistic.lower().replace("-", "")
+        scenario = f"launch_malstone_{stat_slug}_{args.backend}_{engine}"
+        if args.gen_device:
+            scenario += "_gendev"
+        doc = schema.new_document(
+            pathlib.Path(args.bench_json).stem.removeprefix("BENCH_"),
+            device=device, env={"source": "repro_torch.launch.malstone"})
+        schema.add_result(
+            doc, scenario,
+            {"backend": args.backend, "statistic": args.statistic,
+             "engine": engine, "gen_device": args.gen_device,
+             "nodes": args.nodes,
+             "records_per_node": args.records_per_node,
+             "sites": args.sites, "entities": args.entities,
+             "stream_chunks": args.stream_chunks,
+             "overlap": args.overlap,
+             "num_processes": 1,
+             "capacity_factor": args.capacity_factor,
+             "exchange_impl": args.exchange_impl,
+             # the port has no deprecated --packed-shuffle alias: the key
+             # holds that flag's default
+             "packed_shuffle": "auto",
+             "histogram_impl": args.histogram_impl},
+            timing_from_samples([ms * 1e3 for ms in samples],
+                                warmup_iters=1),
+            records=total, derived=shuffle_derived)
+        out = schema.write_document(doc, path=args.bench_json)
+        print(f"wrote {out}")
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ mirrored):
   package passing the other's validator;
 - compare: the same report from both packages on the same pair of
   documents, and the CLI's exit codes 0 / 1 / 2;
-- the registry: JAX's scenario names minus the ten the port does not
+- the registry: JAX's scenario names minus the eight the port does not
   register yet, with equal groups and params; the kernel pairs' inputs;
   the smoke selection; every scenario callable on the CPU at a tiny scale;
+  the overlap pair's shared measurement and JAX's derived keys;
 - the run CLI writing a valid document.
 """
 
@@ -34,9 +35,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = registry.Scale(records_per_node=512, num_sites=64, num_entities=256,
                       chunk_records=256, warmup=1, iters=1)
 # JAX scenarios whose modules the port does not have yet (ROADMAP.md
-# Queue 1 items 4, 5 and 7)
+# Queue 1 items 5 and 7)
 UNREGISTERED = {
-    "streaming_overlap_on", "streaming_overlap_off",
     "resume_overhead_nockpt", "resume_overhead_ckpt",
     "resume_overhead_resume", "faulty_run_transient", "faulty_run_badhost",
     "sweep_multiproc_p1", "sweep_multiproc_p2", "sweep_multiproc_p4",
@@ -273,7 +273,7 @@ def test_scenarios_are_jax_minus_the_unregistered():
     want = set(jax_registry.SCENARIOS) - UNREGISTERED
     assert len(jax_registry.SCENARIOS) == 69
     assert UNREGISTERED <= set(jax_registry.SCENARIOS)
-    assert set(registry.SCENARIOS) == want and len(want) == 59
+    assert set(registry.SCENARIOS) == want and len(want) == 61
     for name, sc in registry.SCENARIOS.items():
         jsc = jax_registry.SCENARIOS[name]
         assert (sc.group, sc.params) == (jsc.group, jsc.params), name
@@ -291,9 +291,10 @@ def test_smoke_selection_is_jax_minus_the_unregistered():
     jax_smoke = jax_registry.preset_scenario_names("smoke")
     smoke = registry.preset_scenario_names("smoke")
     assert len(jax_smoke) == 47
-    assert len(set(jax_smoke) & UNREGISTERED) == 9
+    assert len(set(jax_smoke) & UNREGISTERED) == 7
     assert smoke == [n for n in jax_smoke if n not in UNREGISTERED]
-    assert len(smoke) == 38
+    assert len(smoke) == 40
+    assert {"streaming_overlap_on", "streaming_overlap_off"} <= set(smoke)
     assert registry.preset_scenario_names("full") == list(registry.SCENARIOS)
     with pytest.raises(ValueError):
         registry.preset_scenario_names("nope")
@@ -374,6 +375,36 @@ def test_packed_scenario_derived_bytes(cpu_ctx):
             == d["shuffle_bytes_exchanged"] * 17 // 4
 
 
+def test_overlap_pair_shares_one_measurement(cpu_ctx):
+    """Both rows come from one runner and one interleaved measurement, at
+    JAX's chunk size, with JAX's derived keys (its pair run at the same
+    scale on one device)."""
+    on = registry.SCENARIOS["streaming_overlap_on"].run(TINY, cpu_ctx)
+    off = registry.SCENARIOS["streaming_overlap_off"].run(TINY, cpu_ctx)
+    chunk = registry.OVERLAP_CHUNK_RECORDS
+    num_chunks = cpu_ctx.nodes * TINY.records_per_node // chunk
+    assert chunk == jax_registry.OVERLAP_CHUNK_RECORDS == 64
+    assert (on.derived["overlap"], off.derived["overlap"]) == (True, False)
+    for row in (on, off):
+        assert row.records == num_chunks * chunk
+        assert row.derived["num_chunks"] == num_chunks
+        assert row.effective == {"nodes": cpu_ctx.nodes,
+                                 "chunk_records": chunk}
+        assert row.timing.iters == 15 and row.timing.steady
+    for key in ("shuffle_rounds", "shuffle_overflow",
+                "shuffle_bytes_exchanged"):
+        assert on.derived[key] == off.derived[key]
+    assert on.derived["shuffle_overflow"] == 0
+    assert len(cpu_ctx._overlap) == len(cpu_ctx._overlap_timings) == 1
+
+    jax_tiny = jax_registry.Scale(**TINY.as_params())
+    jax_on = jax_registry.SCENARIOS["streaming_overlap_on"].run(
+        jax_tiny, jax_registry.BenchContext(nodes=1))
+    assert on.derived.keys() == jax_on.derived.keys()
+    assert on.effective.keys() == jax_on.effective.keys()
+    assert jax_on.effective["chunk_records"] == chunk
+
+
 def test_serving_scenarios(cpu_ctx):
     ingest = registry.SCENARIOS["serving_ingest_latency"].run(TINY, cpu_ctx)
     assert ingest.records == cpu_ctx.nodes * TINY.chunk_records
@@ -410,4 +441,4 @@ def test_run_cli_writes_a_valid_document(tmp_path):
         [sys.executable, "-m", "repro_torch.bench.run", "--list"],
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert listing.returncode == 0
-    assert "(38/59)" in listing.stdout
+    assert "(40/61)" in listing.stdout

@@ -766,3 +766,129 @@ def test_card_paths_refuse_what_the_kernels_do_not_take(cuda_device):
         spm.malstone_b(torch.zeros(5, 52, 2, dtype=torch.int64,
                                    device=cuda_device))
     assert sample_sites(cdf, torch.rand(0, device=cuda_device)).shape == (0,)
+
+
+# ------------------------------------------------------ the overlap runner
+def _overlap_case(device, backend, cpn, chunk, nodes=4):
+    from repro_torch.core.overlap import OverlapStreamingRunner
+    from repro_torch.malgen import make_seed_streaming
+
+    cfg = MalGenConfig(num_sites=10_000, num_entities=100_000)
+    plan = ExchangePlan(impl="counting", capacity_factor=0.5,
+                        histogram_impl="kernel")
+    seed = make_seed_streaming(3, cfg, nodes * cpn, chunk, device=device)
+    runner = OverlapStreamingRunner(
+        seed, cfg, nodes=nodes, num_chunks=nodes * cpn, chunk_records=chunk,
+        backend=backend, plan=plan, device=device)
+    return cfg, plan, seed, runner
+
+
+def _stats(stats):
+    return None if stats is None else [int(x) for x in stats]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,cpn,chunk", [
+    ("mapreduce", 6, 1 << 16), ("mapreduce", 32, 512),
+    ("streams", 6, 1 << 16), ("mapreduce_combiner", 4, 4096)])
+def test_overlap_equals_the_streaming_engine_on_the_card(cuda_device,
+                                                         backend, cpn,
+                                                         chunk):
+    """Overlap on, off and the streaming engine (overlap=None) give the
+    same histogram, rho bits and ShuffleStats, over 5 repeats; the run of
+    32 small chunks a node keeps generations in flight beside folds for
+    the caching allocator to reuse memory under, if the runner let it."""
+    from repro_torch.core import malstone_run_streaming
+
+    cfg, plan, seed, runner = _overlap_case(cuda_device, backend, cpn,
+                                            chunk)
+    kw = dict(nodes=4, cfg=cfg, num_chunks=4 * cpn, chunk_records=chunk,
+              backend=backend, plan=plan, device=cuda_device,
+              return_shuffle_stats=True)
+    want, ws = malstone_run_streaming(seed, cfg.num_sites, **kw)
+    for _ in range(5):
+        for ov in (True, False):
+            for got, gs in (runner.run_result("B", overlap=ov),
+                            malstone_run_streaming(seed, cfg.num_sites,
+                                                   overlap=ov, **kw)):
+                assert torch.equal(got.total, want.total), ov
+                assert torch.equal(got.marked, want.marked), ov
+                assert torch.equal(got.rho.view(torch.int32),
+                                   want.rho.view(torch.int32)), ov
+                assert _stats(gs) == _stats(ws), ov
+    if backend == "mapreduce":
+        assert ws.rounds > 1
+
+
+@pytest.mark.cuda
+def test_overlap_launches_the_path_kernels(cuda_device):
+    """One run_result("B") of a mapreduce runner: K6 for each node's
+    marked and unmarked draws a step, K1 and K2 a step, K3 at least once
+    a step, K7 once; no K4 or K5."""
+    cfg, plan, seed, runner = _overlap_case(cuda_device, "mapreduce", 3,
+                                            1 << 15)
+    for ov in (True, False):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        runner.run_result("B", overlap=ov)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        assert got["powerlaw_sample"] == 2 * 4 * 3
+        assert got["count_scatter.count"] == got["count_scatter.scatter"] == 3
+        assert got["segment_hist.packed"] >= 3
+        assert got["windowed_ratio"] == 1
+        assert got["segment_hist"] == got["windowed_ratio.masked"] == 0
+
+
+def _kernel_streams(events, names):
+    return {e["args"].get("stream") for e in events
+            if e.get("cat") == "kernel" and any(n in e["name"]
+                                                for n in names)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ov", (True, False))
+def test_overlap_runs_generation_and_fold_on_two_streams(cuda_device, ov,
+                                                         tmp_path):
+    """A torch.profiler trace of one run: K6 (generation) on one stream,
+    K1-K3 (the fold) on another, the caller's."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, _, runner = _overlap_case(cuda_device, "mapreduce", 3, 1 << 15)
+    runner.run_result("B", overlap=ov)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.run_result("B", overlap=ov)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    gen = _kernel_streams(events, ("sample_kernel", "direct_kernel",
+                                   "guide_kernel"))
+    fold = _kernel_streams(events, ("count_tiles_kernel",
+                                    "scatter_tiles_kernel",
+                                    "packed_hist_kernel"))
+    assert len(gen) == 1 and len(fold) == 1 and gen != fold, (gen, fold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1000, 1 << 18, (1 << 20) + 3))
+def test_k6_on_a_side_stream_equals_plain(cuda_device, n):
+    """K6 launched while a non-default stream is current runs there and
+    equals its plain version."""
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+    w = torch.rand(50_000, generator=g)
+    cdf = torch.cumsum(w, 0)
+    cdf = (cdf / cdf[-1]).to(cuda_device)
+    u = torch.rand(n, generator=g).to(cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = ps.powerlaw_sample(u, cdf)
+    side.synchronize()
+    torch.testing.assert_close(got, ps.powerlaw_sample_plain(u, cdf),
+                               rtol=0, atol=0)

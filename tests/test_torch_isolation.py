@@ -16,7 +16,8 @@ from repro_torch.malgen import MalGenConfig, generate_shards_device, make_seed
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path: pathlib.Path) -> set:

@@ -217,10 +217,11 @@ def jax_seed():
     return jax_seed_streaming(jax.random.key(KEY), JCFG, NUM_CHUNKS, CHUNK)
 
 
-def _jax_chunk_draws(seed, chunk_id):
-    """generator.py:generate_chunk's keys and draws of one chunk."""
+def _jax_chunk_draws(seed, chunk_id, records=CHUNK):
+    """generator.py:generate_chunk's keys and draws of one chunk of
+    ``records`` records."""
     k_ms, k_me, k_mt, k_b, k_us, k_ue, k_ut = chunk_keys(seed.key, chunk_id)
-    nm = chunk_marked_records(TCFG, CHUNK)
+    nm = chunk_marked_records(TCFG, records)
 
     def draws(k_s, k_e, k_t, n):
         return EventDraws(
@@ -232,7 +233,7 @@ def _jax_chunk_draws(seed, chunk_id):
 
     marked = draws(k_ms, k_me, k_mt, nm)
     bern = _t(jax.random.bernoulli(k_b, JCFG.p_mark, (nm,)))
-    return marked, bern, draws(k_us, k_ue, k_ut, CHUNK - nm)
+    return marked, bern, draws(k_us, k_ue, k_ut, records - nm)
 
 
 def _seed_arrays(seed):
@@ -472,9 +473,13 @@ def test_fold_and_snapshot_leave_a_resident_state():
 def test_streaming_contracts():
     seed = make_seed_streaming(1, TCFG, 4, 64, device="cpu")
     log = generate_chunked_log(seed, TCFG, 4, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        malstone_run_streaming(seed, 301, nodes=2, cfg=TCFG, num_chunks=4,
-                               chunk_records=64, overlap=True, device="cpu")
+    with pytest.raises(ValueError, match="seed-mode streaming"):
+        malstone_run_streaming(log, 301, nodes=2, chunk_records=64,
+                               overlap=True, device="cpu")
+    with pytest.raises(ValueError, match="num_chunks"):
+        malstone_run_streaming(seed, 301, nodes=3, cfg=TCFG, num_chunks=4,
+                               chunk_records=64, overlap=False,
+                               device="cpu")
     with pytest.raises(ValueError, match="num_chunks"):
         malstone_run_streaming(seed, 301, nodes=3, cfg=TCFG, num_chunks=4,
                                chunk_records=64, device="cpu")
