@@ -77,7 +77,8 @@
    with draws on their entries and on the guide's bucket edges, u at an
    odd offset, a last entry below 1, entries outside [0, 1]; K7: W in {1,
    2, 31, 32, 33, 52, 64, 65, 130}, S in {1, 7, 1001, 100,000}, zero
-   weeks, sums above 2^24 and past 2^31, a histogram at an odd offset);
+   weeks, sums above 2^24 and past 2^31, NodeDoctor's S in {4, 6, 12} at
+   W in {8, 52}, a histogram at an odd offset);
    (b) the six ``kernel_*`` scenarios at n = 2^23, S = 100,000 through
    ``run_scenarios``, each with the launch counts set to 0 just before it
    and read just after (K4, K6 and K7 launch only in their ``_pallas``
@@ -87,9 +88,10 @@
    also on the MalGen unmarked CDF at a node's draws and at a service
    step's chunk sizes, the wrapper against ``torch.searchsorted`` with
    the host work of both; (c) the
-   port's ``smoke`` selection (38 scenarios: the overlap pair is left
+   port's ``smoke`` selection (42 scenarios: the overlap pair is left
    out, since its 64-record chunks would take 16,384 steps a node at this
-   depth) at the same widths, 8 nodes x 2^20 records, into a document
+   depth, and ``faulty_run_transient``, whose schedule exhausts its
+   retries at 8 nodes, runs at the bench's 2 in phase 10) at the same widths, 8 nodes x 2^20 records, into a document
    that must validate and compare clean against itself; prints its
    records/s and queries/s.
 9. Overlap (``repro_torch.core.overlap``): (a) K6 launched on a
@@ -112,9 +114,36 @@
    launches in the path's exact ratios; (d) the runner on ``streams`` and
    ``mapreduce_combiner`` at 2 steps equal to their streaming engine, K4
    once a step.
+10. Resumable runs (``repro_torch.core.resume``) at ``MalGenConfig()``
+   widths, 8 nodes x 8 steps of 2^20 records, mapreduce counting at
+   capacity factor 2.0, statistic B, in 4 segments of 2 steps: (1) equal
+   to ``malstone_run_streaming(overlap=None)`` (histogram, rho bits, every
+   ShuffleStats field) with exact launches (K6 128, K1 8, K2 8, K3 one a
+   round, K7 1, no K4 or K5; counts set to 0 just before and read just
+   after); (2) killed (raised) at the segment 2 boundary and inside step
+   2's checkpoint write, each resumed equal, the torn step swept, and a
+   complete checkpoint restored; (3) the launcher in a child process
+   killed by ``os._exit(17)`` at segment 2, ``--resume`` in a second
+   child, and the killed run's directory resumed in process, equal; (4)
+   transients (seed 11, 25% a shard, 6 attempts, 4 hosts) exhausting
+   segment 2, resumed without faults equal, and host 0 down, alarmed by
+   NodeDoctor (K7 once a diagnosis) with its two shards rerouted, equal;
+   each run's telemetry diagnosed again afterwards, K7 at ``[4, 8, 2]``
+   bit-equal to its plain version and the card's report (rho and CUSUM
+   bits, alarm, ranking) equal to the CPU's;
+   (5) streams at its full ``[8, 100,000, 52, 2]`` carry, 4 steps with a
+   checkpoint every 2, equal with K4 once a step, and restored; (6) the
+   segmented run against the engine in interleaved turns, checkpoint save
+   ms a segment, bytes a checkpoint and restore ms, and the card's idle
+   share from one profile of each mode; (7) the bench's
+   ``faulty_run_transient`` at 2 nodes through ``run_scenarios``, its
+   runner and plan run again and held against the streaming engine; the
+   temporary directory is removed.
 
-Prints one JSON line of per-kernel numbers, then the card's name and power
-limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
+Prints one JSON line of per-kernel numbers (``launches`` from the main
+path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
+phase 10's two fault-free runs, mapreduce and streams), then the card's
+name and power limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
 last line. Exits non-zero, printing no result, without a CUDA device or
 when the repository's ``src/`` is not beside this file; any failed check
 exits non-zero.
@@ -166,6 +195,14 @@ OVERLAP_TURNS = 5
 OVERLAP_PAIR = ("streaming_overlap_on", "streaming_overlap_off")
 BENCH_OVERLAP = dict(records_per_node=4096, chunk_records=1 << 18, iters=1,
                      **BENCH_WIDTHS)
+# phase 10: resumable runs at the service's widths and chunk: mapreduce
+# counting over 8 steps a node in segments of 2 (4 segments), streams over
+# 4 steps at its full [8, 100,000, 52, 2] carry
+RESUME_CHUNK, RESUME_STEPS, RESUME_SEGMENT = 1 << 20, 8, 2
+RESUME_STREAMS_STEPS = 4
+RESUME_TURNS = 5
+RESUME_HOSTS = 4
+BENCH_TRANSIENT = "faulty_run_transient"
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
 GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
 FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
@@ -1604,7 +1641,8 @@ def k7_cases(device):
     130} (odd W takes 4-byte loads, W > 64 more than one chunk), S in {1,
     7, 1001} (no multiple of a block's 8 sites), counts below 1000, above
     2^24 and past 2^31, zero weeks and empty sites; S = 100,000 at W = 52;
-    and histograms at an offset of one int (no 16-byte loads)."""
+    NodeDoctor's few hosts at W in {8, 52}; and histograms at an offset of
+    one int (no 16-byte loads)."""
     g = torch.Generator(device="cpu").manual_seed(8)
     out = []
     for w in (1, 2, 31, 32, 33, 52, 64, 65, 130):
@@ -1618,6 +1656,13 @@ def k7_cases(device):
     out.append(("S=100000 W=52", torch.randint(
         0, 1000, (100_000, 52, 2), generator=g, dtype=torch.int32)
         .to(device)))
+    # NodeDoctor's: S = hosts, W = its telemetry's 8 buckets or the
+    # default 52, counts of a few events a bucket
+    for s, w in ((4, 8), (6, 8), (4, 52), (12, 52)):
+        hist = torch.randint(0, 9, (s, w, 2), generator=g,
+                             dtype=torch.int32)
+        hist[..., 1] = torch.minimum(hist[..., 1], hist[..., 0])
+        out.append((f"S={s} W={w} NodeDoctor", hist.to(device)))
     for w in (52, 33):
         flat = torch.randint(0, 1 << 27, (1 + 999 * w * 2,), generator=g,
                              dtype=torch.int32).to(device)
@@ -1818,15 +1863,17 @@ def bench_smoke(device) -> None:
     ctx = registry.BenchContext(nodes=NODES, device=device)
     # the overlap pair cuts chunks to 64 records: at this depth that is
     # 16,384 steps a node for each of its 32 runs, so it runs in phase 9
-    # at a depth of its own
+    # at a depth of its own; the transient row's schedule (25% a shard)
+    # passes an attempt of 8 shards one time in ten and exhausts its
+    # retries here, so it runs at the bench's 2 nodes in phase 10
     names = [n for n in registry.preset_scenario_names("smoke")
-             if n not in OVERLAP_PAIR]
+             if n not in OVERLAP_PAIR + (BENCH_TRANSIENT,)]
     doc = schema.new_document("torch_smoke_chip", preset="smoke",
                               device=device)
     t0 = time.perf_counter()
     skipped = run_scenarios(names, scale, ctx, doc)
     wall = time.perf_counter() - t0
-    check(not skipped and len(doc["results"]) == len(names) == 38,
+    check(not skipped and len(doc["results"]) == len(names) == 42,
           f"smoke selection: {len(doc['results'])} rows, skipped {skipped}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
         path = schema.write_document(doc, pathlib.Path(tmp) / "BENCH.json")
@@ -2312,6 +2359,525 @@ def overlap(device) -> dict:
     return out
 
 
+def dir_bytes(path: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def expect_kill(fn) -> bool:
+    """Whether ``fn`` raised the injected ``SimulatedKill``."""
+    from repro_torch.faults import SimulatedKill
+
+    try:
+        fn()
+    except SimulatedKill:
+        return True
+    return False
+
+
+def same_outcome(name: str, out, want, want_stats) -> None:
+    same_result(name, out.result, want, out.shuffle_stats, want_stats)
+    check(bool(torch.isfinite(out.result.rho).all())
+          and out.result.rho.device.type == "cuda",
+          f"{name}: rho not finite or not on the card")
+
+
+def resume_kills(runner, want, want_stats, root: pathlib.Path) -> dict:
+    """(2) Raised kills at the segment 2 boundary and inside step 2's
+    checkpoint write, each resumed; a complete checkpointed run and its
+    restore, for the checkpoint numbers."""
+    from repro_torch.faults import FaultPlan
+
+    d = root / "boundary"
+    check(expect_kill(lambda: runner.run(
+        checkpoint_dir=str(d),
+        faults=FaultPlan(kill_at_segment=2, kill_mode="raise"))),
+          "kill at the segment 2 boundary did not fire")
+    out = runner.run(checkpoint_dir=str(d))
+    rep = out.report
+    check(rep.resumed_from_step == 2 and rep.chunks_skipped == 32
+          and rep.segments_run == 2,
+          f"boundary kill: resumed {rep.to_derived()}")
+    same_outcome("resumed after a boundary kill", out, want, want_stats)
+
+    d = root / "mid_checkpoint"
+    check(expect_kill(lambda: runner.run(
+        checkpoint_dir=str(d),
+        faults=FaultPlan(kill_mid_checkpoint_step=2, kill_mode="raise"))),
+          "kill inside step 2's checkpoint did not fire")
+    names = sorted(p.name for p in d.iterdir())
+    check(any(n.startswith(".tmp_step_2_") for n in names)
+          and "step_00000002.COMMITTED" not in names
+          and "step_00000001.COMMITTED" in names,
+          f"mid-checkpoint kill left {names}")
+    out = runner.run(checkpoint_dir=str(d))
+    check(out.report.resumed_from_step == 1
+          and out.report.chunks_skipped == 16,
+          f"mid-checkpoint kill: resumed {out.report.to_derived()}")
+    check(not any(p.name.startswith(".tmp_") for p in d.iterdir()),
+          "the next manager did not sweep the torn step")
+    same_outcome("resumed after a mid-checkpoint kill", out, want,
+                 want_stats)
+
+    d = root / "complete"
+    full = runner.run(checkpoint_dir=str(d), resume=False)
+    same_outcome("checkpointed", full, want, want_stats)
+    step_bytes = dir_bytes(d / "step_00000004")
+    again = runner.run(checkpoint_dir=str(d))
+    check(again.report.segments_run == 0
+          and again.report.chunks_skipped == NODES * RESUME_STEPS,
+          f"complete checkpoint: {again.report.to_derived()}")
+    same_outcome("restored from a complete checkpoint", again, want,
+                 want_stats)
+    out = dict(save_ms_per_segment=full.report.checkpoint_save_ms
+               / full.report.segments_run,
+               bytes_per_checkpoint=step_bytes,
+               restore_ms=again.report.checkpoint_restore_ms)
+    log("resume", "mapreduce kills: the boundary kill resumed from step 2"
+                  " (32 chunks restored), the mid-checkpoint kill from step"
+                  " 1 with the torn step swept; both equal the engine; "
+                  "checkpoint " + json.dumps(out))
+    return out
+
+
+def resume_crash(runner, want, want_stats, root: pathlib.Path) -> dict:
+    """(3) The launcher's resumable path in a child process, killed by
+    ``os._exit(17)`` at the segment 2 boundary; ``--resume`` in a second
+    child; then an in-process resume from a copy of the killed run's
+    directory."""
+    import shutil
+
+    from repro_torch.bench import schema
+
+    d = root / "crash"
+    base = [sys.executable, "-m", "repro_torch.launch.malstone",
+            "--nodes", str(NODES),
+            "--records-per-node", str(RESUME_STEPS * RESUME_CHUNK),
+            "--sites", str(runner.cfg.num_sites),
+            "--entities", str(runner.cfg.num_entities),
+            "--backend", "mapreduce", "--exchange-impl", "counting",
+            "--capacity-factor", str(CAPACITY_FACTOR),
+            "--stream-chunks", str(RESUME_STEPS),
+            "--segment-chunks", str(RESUME_SEGMENT),
+            "--checkpoint-dir", str(d)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = {}
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--inject-faults", "kill_at_segment=2"],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=ROOT)
+    out["killed_s"] = time.perf_counter() - t0
+    check(proc.returncode == 17,
+          f"launcher with kill_at_segment=2 exited {proc.returncode}, not "
+          f"17: {proc.stderr[-2000:]}")
+    names = sorted(p.name for p in d.iterdir())
+    check("step_00000002.COMMITTED" in names
+          and "step_00000003.COMMITTED" not in names,
+          f"killed launcher left {names}")
+    shutil.copytree(d, root / "crash_copy")
+    bench = root / "BENCH_resume.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--resume", "--bench-json", str(bench)],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=ROOT)
+    out["resumed_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"launcher --resume exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check("resumed from checkpoint step 2" in proc.stdout,
+          f"launcher --resume did not resume: {proc.stdout[-2000:]}")
+    for line in proc.stdout.splitlines():
+        if any(k in line for k in ("resumable", "checkpoint:", "shuffle:")):
+            log("resume", f"launcher --resume: {line.strip()}")
+    doc = schema.load_document(bench)
+    (row,) = doc["results"]
+    check(row["scenario"] == "launch_malstone_b_mapreduce_resume"
+          and row["derived"]["resumed_from_step"] == 2,
+          f"launcher document: {row['scenario']} {row['derived']}")
+    got = runner.run(checkpoint_dir=str(root / "crash_copy"))
+    check(got.report.resumed_from_step == 2,
+          f"resume from the killed launcher's copy: "
+          f"{got.report.to_derived()}")
+    same_outcome("resumed after a process exit", got, want, want_stats)
+    log("resume", f"launcher killed by os._exit(17) at segment 2 in "
+                  f"{out['killed_s']:.1f} s, --resume exited 0 in "
+                  f"{out['resumed_s']:.1f} s; the killed run's copy "
+                  f"resumed in process equals the engine")
+    return out
+
+
+def doctor_on_card(name: str, telemetry, device) -> dict:
+    """NodeDoctor over a run's telemetry, after the run: K7 on the
+    ``[hosts, buckets, 2]`` histogram the diagnosis builds, held against
+    its plain version, and the report on the card (one K7 launch) against
+    the same diagnosis on the CPU: rho and CUSUM bits, alarm, ranking."""
+    import copy
+
+    from repro_torch.common.types import SECONDS_PER_WEEK
+    from repro_torch.core import nodedoctor
+    from repro_torch.core.spm import site_week_histogram
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.windowed_ratio import ops as wr
+
+    hosts, segments, buckets, failed = (
+        torch.tensor(c, dtype=torch.int32, device=device)
+        for c in zip(*telemetry._events))
+    hist = site_week_histogram(
+        nodedoctor.host_telemetry_log(hosts, segments,
+                                      buckets * SECONDS_PER_WEEK, failed),
+        telemetry.num_hosts, telemetry.num_buckets)
+    shape = (telemetry.num_hosts, telemetry.num_buckets, 2)
+    check(tuple(hist.shape) == shape and int(hist[..., 1].sum())
+          == telemetry.failures,
+          f"NodeDoctor ({name}): histogram {tuple(hist.shape)} with "
+          f"{int(hist[..., 1].sum())} failures, expected {shape} with "
+          f"{telemetry.failures}")
+    err = exact(f"K7 in NodeDoctor ({name}) at {shape}",
+                k7_outputs(wr.windowed_ratio(hist)),
+                k7_outputs(wr.windowed_ratio_plain(hist)))
+    sync(device)
+    reset_launch_counts()
+    got = telemetry.diagnose()
+    sync(device)
+    k7 = launch_counts()["windowed_ratio"]
+    on_cpu = copy.copy(telemetry)
+    on_cpu.device = "cpu"
+    want = on_cpu.diagnose()
+    check(k7 == 1 and got.rho.device.type == "cuda",
+          f"NodeDoctor ({name}) on the card: {k7} K7 launches, rho on "
+          f"{got.rho.device}")
+    for f in ("rho", "cusum"):
+        check(torch.equal(getattr(got, f).cpu().view(torch.int32),
+                          getattr(want, f).view(torch.int32)),
+              f"NodeDoctor ({name}): {f} on the card differs from the CPU")
+    check(torch.equal(got.alarm.cpu(), want.alarm)
+          and torch.equal(got.suspect_rank.cpu(), want.suspect_rank),
+          f"NodeDoctor ({name}): alarm {got.alarm.tolist()} / "
+          f"{want.alarm.tolist()}, rank {got.suspect_rank.tolist()} / "
+          f"{want.suspect_rank.tolist()} (card / CPU)")
+    return dict(events=len(telemetry), failures=telemetry.failures,
+                alarm=want.alarm.tolist(),
+                suspect_rank=want.suspect_rank.tolist(), max_abs_err=err)
+
+
+def resume_faults(runner, want, want_stats, want_launches, device,
+                  root: pathlib.Path) -> dict:
+    """(4) Seeded faults with bounded retry (6 attempts) over 4 hosts.
+
+    Transients at 25% a shard: an attempt passes only if all 8 shards do
+    (0.75^8 = 0.10), and this schedule (seed 11) exhausts segment 2's six
+    attempts, as on the CPU, since the coin is a function of the plan and
+    the (segment, shard, host, attempt) only. The run raises
+    ``SegmentRetriesExhausted`` after committing steps 1 and 2, and the
+    resume without faults equals the engine: no record is lost. Host 0
+    down: it alarms on the second attempt, its shards 0 and 4 move, and
+    the run completes equal to the engine. K7 launches once a diagnosis
+    (each failed attempt) and once for a finalize."""
+    from repro_torch.faults import (
+        FaultPlan,
+        RetryPolicy,
+        SegmentRetriesExhausted,
+        TelemetryBuffer,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    retry = RetryPolicy(max_attempts=6, backoff_s=0.0)
+    out = {}
+    d = root / "transient"
+    telemetry = TelemetryBuffer(RESUME_HOSTS, device=device)
+    sync(device)
+    reset_launch_counts()
+    exhausted = None
+    try:
+        runner.run(checkpoint_dir=str(d),
+                   faults=FaultPlan(seed=11, transient_rate=0.25,
+                                    kill_mode="raise"),
+                   retry=retry, num_hosts=RESUME_HOSTS,
+                   telemetry=telemetry)
+    except SegmentRetriesExhausted as e:
+        exhausted = e
+    sync(device)
+    launches = launch_counts()
+    check(exhausted is not None and exhausted.segment == 2
+          and exhausted.attempts == 6,
+          f"transients: expected segment 2 to exhaust its 6 attempts, got "
+          f"{exhausted!r}")
+    steps_done = 2 * RESUME_SEGMENT
+    check(launches["count_scatter.count"] == steps_done
+          and launches["powerlaw_sample"]
+          == want_launches["powerlaw_sample"] * steps_done // RESUME_STEPS
+          and launches["windowed_ratio"] >= retry.max_attempts,
+          f"transients: launches {launches}")
+    resumed = runner.run(checkpoint_dir=str(d))
+    check(resumed.report.resumed_from_step == 2,
+          f"transients: resumed {resumed.report.to_derived()}")
+    same_outcome("resumed after exhausted retries", resumed, want,
+                 want_stats)
+    out["transient"] = dict(exhausted_segment=exhausted.segment,
+                            k7_launches=launches["windowed_ratio"],
+                            last_error=str(exhausted.last_error),
+                            doctor=doctor_on_card("transients", telemetry,
+                                                  device))
+    log("resume", "faults transient (seed 11, 25%): segment 2 exhausted "
+                  "its 6 attempts, as predicted; resumed from step 2 "
+                  "without faults, equal to the engine; "
+                  + json.dumps(out["transient"]))
+
+    telemetry = TelemetryBuffer(RESUME_HOSTS, device=device)
+    sync(device)
+    reset_launch_counts()
+    got = runner.run(faults=FaultPlan(bad_hosts=(0,), kill_mode="raise"),
+                     retry=retry, num_hosts=RESUME_HOSTS,
+                     telemetry=telemetry)
+    sync(device)
+    launches = launch_counts()
+    rep = got.report
+    same_outcome("faults badhost", got, want, want_stats)
+    check(launches["windowed_ratio"] == 1 + rep.segments_retried
+          and {k: v for k, v in launches.items() if k != "windowed_ratio"}
+          == {k: v for k, v in want_launches.items()
+              if k != "windowed_ratio"},
+          f"faults badhost: launches {launches}, "
+          f"{rep.segments_retried} retries")
+    check(rep.alarmed_hosts == [0] and rep.rerouted_shards == 2,
+          f"bad host 0: alarmed {rep.alarmed_hosts}, rerouted "
+          f"{rep.rerouted_shards} (predicted [0], 2)")
+    doctor = doctor_on_card("bad host 0", telemetry, device)
+    check(doctor["alarm"] == [h in rep.alarmed_hosts
+                              for h in range(RESUME_HOSTS)],
+          f"bad host 0: the last diagnosis alarms {doctor['alarm']}, the "
+          f"run rerouted from {rep.alarmed_hosts}")
+    out["badhost"] = dict(rep.to_derived(),
+                          k7_launches=launches["windowed_ratio"],
+                          doctor=doctor)
+    log("resume", "faults badhost (host 0 down): equals the engine; "
+                  + json.dumps(out["badhost"]))
+    return out
+
+
+def resume_streams(device, root: pathlib.Path) -> dict:
+    """(5) Streams at its full carry, 4 steps a node in segments of 2 with
+    a checkpoint after each (2 x 332.8 MB), equal to the streaming engine
+    with K4 once a step; then the restore."""
+    from repro_torch.common.types import ExchangePlan
+    from repro_torch.core import malstone_run_streaming
+    from repro_torch.core.overlap import OverlapStreamingRunner
+    from repro_torch.core.resume import ResumableRunner
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.malgen import MalGenConfig, make_seed_streaming
+
+    cfg = MalGenConfig()
+    num_chunks = NODES * RESUME_STREAMS_STEPS
+    plan = ExchangePlan(histogram_impl="kernel")
+    seed = make_seed_streaming(1, cfg, num_chunks, RESUME_CHUNK,
+                               device=device)
+    runner = ResumableRunner(
+        seed, cfg, nodes=NODES, num_chunks=num_chunks,
+        chunk_records=RESUME_CHUNK, segment_chunks=RESUME_SEGMENT,
+        backend="streams", plan=plan, device=device)
+    want_launches = runner_launches(OverlapStreamingRunner(
+        seed, cfg, nodes=NODES, num_chunks=num_chunks,
+        chunk_records=RESUME_CHUNK, backend="streams", plan=plan,
+        device=device), [])
+    want, _ = malstone_run_streaming(
+        seed, cfg.num_sites, nodes=NODES, cfg=cfg, num_chunks=num_chunks,
+        chunk_records=RESUME_CHUNK, backend="streams", statistic="B",
+        plan=plan, device=device, return_shuffle_stats=True)
+    d = root / "streams"
+    sync(device)
+    reset_launch_counts()
+    got = runner.run(checkpoint_dir=str(d))
+    sync(device)
+    launches = launch_counts()
+    check(launches == want_launches,
+          f"streams resumable: launches {launches}, expected "
+          f"{want_launches}")
+    same_outcome("streams, checkpointed", got, want, None)
+    step_bytes = dir_bytes(d / "step_00000002")
+    carry_bytes = NODES * runner.s_pad * runner.num_weeks * 2 * 4
+    check(step_bytes >= carry_bytes,
+          f"streams checkpoint {step_bytes} bytes < carry {carry_bytes}")
+    again = runner.run(checkpoint_dir=str(d))
+    check(again.report.resumed_from_step == 2
+          and again.report.segments_run == 0,
+          f"streams restore: {again.report.to_derived()}")
+    same_outcome("streams, restored", again, want, None)
+    out = dict(launches=launches,
+               save_ms_per_segment=got.report.checkpoint_save_ms
+               / got.report.segments_run,
+               bytes_per_checkpoint=step_bytes, carry_bytes=carry_bytes,
+               restore_ms=again.report.checkpoint_restore_ms)
+    log("resume", "streams at its full carry: equals the engine, launches "
+                  + json.dumps(launches) + "; checkpoint "
+                  + json.dumps({k: v for k, v in out.items()
+                                if k != "launches"}))
+    return out
+
+
+def resume_bench(device) -> dict:
+    """(7) The bench's ``faulty_run_transient`` at the bench's default 2
+    nodes and phase 8's widths and depth, through ``run_scenarios`` (at
+    8 nodes its schedule exhausts segment 2, as step 4 shows)."""
+    from repro_torch.bench import registry, schema
+    from repro_torch.bench.run import run_scenarios
+    from repro_torch.core import malstone_run_streaming
+    from repro_torch.faults import FaultPlan, RetryPolicy
+
+    scale = registry.Scale(**BENCH_SMOKE)
+    ctx = registry.BenchContext(nodes=2, device=device)
+    doc = schema.new_document("torch_resume_chip", preset="smoke",
+                              device=device)
+    skipped = run_scenarios([BENCH_TRANSIENT], scale, ctx, doc)
+    check(not skipped and len(doc["results"]) == 1,
+          f"{BENCH_TRANSIENT}: {len(doc['results'])} rows, skipped "
+          f"{skipped}")
+    schema.validate_document(doc)
+    (row,) = doc["results"]
+    derived = row["derived"]
+    check(derived["segments_run"] == derived["segments_total"]
+          and derived["fault_events"] > 0,
+          f"{BENCH_TRANSIENT}: derived {derived}")
+    # the row's runner and plan once more, against the engine
+    runner, _ = registry._resume_runner(scale, ctx)
+    seed, num_chunks = ctx.seed(scale)
+    got = runner.run(faults=FaultPlan(seed=11, transient_rate=0.25,
+                                      kill_mode="raise"),
+                     retry=RetryPolicy(max_attempts=6, backoff_s=0.0),
+                     num_hosts=RESUME_HOSTS)
+    check(got.report.to_derived() == derived,
+          f"{BENCH_TRANSIENT}: rerun {got.report.to_derived()}, row "
+          f"{derived}")
+    want = malstone_run_streaming(
+        seed, scale.num_sites, nodes=ctx.nodes, cfg=ctx.cfg(scale),
+        num_chunks=num_chunks, chunk_records=scale.chunk_records,
+        backend="streams", statistic="B", device=device)
+    same_outcome(f"{BENCH_TRANSIENT} at 2 nodes", got, want, None)
+    out = dict(us_per_call=row["us_per_call"],
+               records_per_s=row["records_per_s"], derived=derived)
+    log("bench", f"{BENCH_TRANSIENT} at 2 nodes: equals the streaming "
+                 f"engine; " + json.dumps(out))
+    return out
+
+
+def resumable(device) -> dict:
+    """Phase 10: (1) the resumable runner, mapreduce counting at full
+    width, equal to the streaming engine with exact launches; (2) raised
+    kills and resumes; (3) a real process exit of the launcher, resumed;
+    (4) faults with retry and NodeDoctor rerouting; (5) streams at its
+    full carry with checkpoints; (7) the bench's transient row at 2
+    nodes; (6) timings, checkpoint cost and the card's idle share."""
+    import shutil
+    import tempfile
+
+    from repro_torch.common.types import ExchangePlan
+    from repro_torch.core import malstone_run_streaming
+    from repro_torch.core.overlap import OverlapStreamingRunner
+    from repro_torch.core.resume import ResumableRunner
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.malgen import MalGenConfig, make_seed_streaming
+
+    t_phase = time.perf_counter()
+    cfg = MalGenConfig()
+    num_chunks = NODES * RESUME_STEPS
+    total = num_chunks * RESUME_CHUNK
+    plan = ExchangePlan(impl="counting", capacity_factor=CAPACITY_FACTOR,
+                        histogram_impl="kernel")
+    # rng seed 0: the launcher's, so that its checkpoints resume here
+    seed = make_seed_streaming(0, cfg, num_chunks, RESUME_CHUNK,
+                               device=device)
+    runner = ResumableRunner(
+        seed, cfg, nodes=NODES, num_chunks=num_chunks,
+        chunk_records=RESUME_CHUNK, segment_chunks=RESUME_SEGMENT,
+        backend="mapreduce", plan=plan, device=device)
+    # the same chunks through the overlap runner's step: each step's
+    # shuffle rounds, and so the exact launches of a run
+    stepper = OverlapStreamingRunner(
+        seed, cfg, nodes=NODES, num_chunks=num_chunks,
+        chunk_records=RESUME_CHUNK, backend="mapreduce", plan=plan,
+        device=device)
+    rounds = step_rounds(stepper)
+    want_launches = runner_launches(stepper, rounds)
+    del stepper
+
+    def engine():
+        return malstone_run_streaming(
+            seed, cfg.num_sites, nodes=NODES, cfg=cfg, num_chunks=num_chunks,
+            chunk_records=RESUME_CHUNK, backend="mapreduce", statistic="B",
+            plan=plan, device=device, return_shuffle_stats=True)
+
+    want, want_stats = engine()
+    check(int(want_stats.overflow) == 0 and int(want_stats.sent) == total,
+          f"streaming engine: sent {int(want_stats.sent)} of {total}")
+
+    # (1) the path, counted
+    sync(device)
+    reset_launch_counts()
+    out = runner.run()
+    sync(device)
+    launches = launch_counts()
+    check(launches == want_launches,
+          f"resumable mapreduce: launches {launches}, expected "
+          f"{want_launches}")
+    rep = out.report
+    check(rep.segments_run == rep.segments_total == 4
+          and rep.chunks_processed == num_chunks
+          and rep.resumed_from_step is None,
+          f"resumable mapreduce: report {rep.to_derived()}")
+    same_outcome("resumable mapreduce", out, want, want_stats)
+    log("resume", f"mapreduce counting, {NODES} x {RESUME_STEPS} steps of "
+                  f"{RESUME_CHUNK:,} records in 4 segments: equals the "
+                  f"streaming engine (histogram, rho bits, ShuffleStats "
+                  f"{[int(x) for x in out.shuffle_stats]}); launches "
+                  + json.dumps(launches) + f"; rounds a step {rounds}")
+    result = {"launches": launches, "rounds": rounds}
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        result["checkpoint"] = resume_kills(runner, want, want_stats, root)
+        result["crash"] = resume_crash(runner, want, want_stats, root)
+        result["faults"] = resume_faults(runner, want, want_stats,
+                                         want_launches, device, root)
+        result["streams"] = resume_streams(device, root)
+        result["bench"] = resume_bench(device)
+
+        # (6) numbers: interleaved runs, then one profile of each mode
+        modes = {"segmented": runner.run, "engine": engine}
+        samples = {m: [] for m in modes}
+        for turn in range(RESUME_TURNS):
+            for m in (("segmented", "engine") if turn % 2 == 0
+                      else ("engine", "segmented")):
+                samples[m].append(time_ms(modes[m], device, iters=1,
+                                          warmup=0))
+        med = {m: statistics.median(v) for m, v in samples.items()}
+        result["run_ms"] = samples
+        result["median_ms"] = med
+        fresh = iter(range(1000))
+        prof = {
+            "segmented": stream_profile(runner.run, device),
+            "engine": stream_profile(engine, device),
+            "checkpointed": stream_profile(lambda: runner.run(
+                checkpoint_dir=str(root / f"profiled{next(fresh)}"),
+                resume=False), device)}
+        result["profile"] = {m: {k: p[k] for k in ("wall_ms", "busy_ms",
+                                                   "idle_share")}
+                             for m, p in prof.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    card = card_line()
+    log("resume", f"[{card}] {total:,} records, {RESUME_TURNS} interleaved "
+                  f"turns; run ms {json.dumps(samples)}; medians "
+                  f"{json.dumps(med)}; segmented / engine "
+                  f"{med['segmented'] / med['engine']:.4f}")
+    log("resume", f"[{card}] checkpoint, mapreduce: "
+                  + json.dumps(result["checkpoint"]) + "; streams: "
+                  + json.dumps({k: v for k, v in result["streams"].items()
+                                if k != "launches"}))
+    log("resume", f"[{card}] profile (wall ms, busy ms, idle share): "
+                  + json.dumps(result["profile"]))
+    log("resume", f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2349,6 +2915,11 @@ def main() -> int:
         for row in kernels:
             if row["name"] in ov["launches"]:
                 row["overlap_launches"] = ov["launches"][row["name"]]
+        res = resumable(device)
+        for row in kernels:
+            row["resume_launches"] = (res["launches"][row["name"]]
+                                      + res["streams"]["launches"][
+                                          row["name"]])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -29,18 +29,20 @@ scenario. The registry covers:
   (p50/p95/p99 in ``derived``) and ``serving_sustained_qps``;
 - the **overlap pair** ``streaming_overlap_{on,off}``: the double-buffered
   per-chunk runner (``core/overlap.py``) against the same calls
-  serialised, in one interleaved measurement.
+  serialised, in one interleaved measurement;
+- **resume** — ``resume_overhead_{nockpt,ckpt,resume}`` (the segmented
+  run of ``core/resume.py`` without checkpoints, with one a segment, and
+  restoring a complete one) and ``faulty_run_{transient,badhost}`` (the
+  same run under a seeded fault schedule, with retry and NodeDoctor
+  rerouting over 4 hosts).
 
 The P nodes are a leading axis on one device, so a mesh sweep runs at any
 node count (the JAX package skips sizes above its device count). Random
 streams that JAX derives from ``jax.random.key(k)`` come from the port's
 integer ``rng_seed=k``: the same seed gives other records than JAX.
 
-Not registered yet, each with the ROADMAP.md Queue 1 item that brings
-it: ``resume_overhead_{nockpt,ckpt,resume}`` and
-``faulty_run_{transient,badhost}`` (item 5, ``core/resume.py``, the
-checkpoint store and ``faults/``), ``sweep_multiproc_p{1,2,4}`` (item 7,
-the multi-process launcher).
+Not registered yet: ``sweep_multiproc_p{1,2,4}`` (ROADMAP.md Queue 1
+item 7, the multi-process launcher).
 
 ``SCENARIOS[name].run(scale, ctx)`` times one scenario under
 ``repro_torch.bench.timing`` and returns a ``ScenarioResult`` for
@@ -652,6 +654,127 @@ for _ov in (True, False):
                      "shuffle_overflow": int(stats.overflow),
                      "shuffle_bytes_exchanged": int(stats.bytes_exchanged)},
             effective={"nodes": ctx.nodes, "chunk_records": chunk})
+
+
+# ------------------------------------------------------------------ resume
+# The checkpoint tax and fault recovery over repro_torch.core.resume, one
+# runner a scenario, over the context's streaming seed.
+def _resume_runner(scale: Scale, ctx: BenchContext, *,
+                   backend: str = "streams", segment_chunks: int = 1):
+    from repro_torch.core.resume import ResumableRunner
+    seed, num_chunks = ctx.seed(scale)
+    runner = ResumableRunner(
+        seed, ctx.cfg(scale), nodes=ctx.nodes, num_chunks=num_chunks,
+        chunk_records=scale.chunk_records, segment_chunks=segment_chunks,
+        backend=backend, statistic="B", device=ctx.device)
+    return runner, num_chunks * scale.chunk_records
+
+
+def _resume_scenario_result(timing, out, records: int) -> ScenarioResult:
+    return ScenarioResult(timing=timing, records=records,
+                          derived=out.report.to_derived())
+
+
+def _time_resumable(scale: Scale, runner, records: int,
+                    **run_kw) -> ScenarioResult:
+    last = []
+
+    def fn():
+        out = runner.run(**run_kw)
+        last[:] = [out]
+        return out.result.rho
+
+    timing, _ = time_callable(fn, warmup=scale.warmup, iters=scale.iters)
+    return _resume_scenario_result(timing, last[0], records)
+
+
+@_register("resume_overhead_nockpt", "resume",
+           {"backend": "streams", "engine": "resumable",
+            "checkpoint": "off", "segment_chunks": 1})
+def _resume_overhead_nockpt(scale: Scale, ctx: BenchContext):
+    """The segmented loop without checkpoint IO: the segmentation's cost
+    over ``malstone_b_streams_streaming``."""
+    runner, records = _resume_runner(scale, ctx)
+    return _time_resumable(scale, runner, records)
+
+
+@_register("resume_overhead_ckpt", "resume",
+           {"backend": "streams", "engine": "resumable",
+            "checkpoint": "fresh", "segment_chunks": 1})
+def _resume_overhead_ckpt(scale: Scale, ctx: BenchContext):
+    """Plus a checkpoint written after every segment, into a fresh
+    directory a call, so that every sample computes and saves."""
+    import itertools
+    import pathlib
+    import shutil
+    import tempfile
+
+    runner, records = _resume_runner(scale, ctx)
+    root = tempfile.mkdtemp(prefix="bench_resume_ckpt_")
+    counter = itertools.count()
+    last = []
+
+    def fn():
+        d = pathlib.Path(root) / f"call{next(counter)}"
+        out = runner.run(checkpoint_dir=str(d), resume=False)
+        last[:] = [out]
+        return out.result.rho
+
+    try:
+        timing, _ = time_callable(fn, warmup=scale.warmup, iters=scale.iters)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return _resume_scenario_result(timing, last[0], records)
+
+
+@_register("resume_overhead_resume", "resume",
+           {"backend": "streams", "engine": "resumable",
+            "checkpoint": "restore", "segment_chunks": 1})
+def _resume_overhead_resume(scale: Scale, ctx: BenchContext):
+    """The floor of recovery: restore a complete checkpoint and finalize,
+    with no chunk regenerated."""
+    import shutil
+    import tempfile
+
+    runner, records = _resume_runner(scale, ctx)
+    root = tempfile.mkdtemp(prefix="bench_resume_restore_")
+    try:
+        runner.run(checkpoint_dir=root, resume=False)  # populate
+        return _time_resumable(scale, runner, records, checkpoint_dir=root,
+                               resume=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _run_faulty(scale: Scale, ctx: BenchContext, *, plan,
+                num_hosts: int = 4) -> ScenarioResult:
+    """A fault schedule is a pure function of (plan seed, segment, shard,
+    host, attempt): every timed call replays the same faults."""
+    from repro_torch.faults import RetryPolicy
+    runner, records = _resume_runner(scale, ctx)
+    return _time_resumable(
+        scale, runner, records, faults=plan,
+        retry=RetryPolicy(max_attempts=6, backoff_s=0.0),
+        num_hosts=num_hosts)
+
+
+@_register("faulty_run_transient", "resume",
+           {"backend": "streams", "engine": "resumable", "faults":
+            "transient_rate=0.25,seed=11", "num_hosts": 4})
+def _faulty_run_transient(scale: Scale, ctx: BenchContext):
+    from repro_torch.faults import FaultPlan
+    return _run_faulty(scale, ctx,
+                       plan=FaultPlan(seed=11, transient_rate=0.25,
+                                      kill_mode="raise"))
+
+
+@_register("faulty_run_badhost", "resume",
+           {"backend": "streams", "engine": "resumable",
+            "faults": "bad_hosts=0", "num_hosts": 4})
+def _faulty_run_badhost(scale: Scale, ctx: BenchContext):
+    from repro_torch.faults import FaultPlan
+    return _run_faulty(scale, ctx,
+                       plan=FaultPlan(bad_hosts=(0,), kill_mode="raise"))
 
 
 # ----------------------------------------------------------------- serving

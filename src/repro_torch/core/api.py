@@ -15,9 +15,10 @@ streaming            seed     ``malstone_run_streaming`` (``num_chunks``; a
                               seed from ``make_seed_streaming``)
 generated_streaming  seed     ``malstone_run_generated_streaming``
                               (``records_per_shard``)
+resumable            seed     ``malstone_run_resumable`` (``num_chunks``,
+                              ``chunk_records``, ``segment_chunks``;
+                              returns a ``ResumeOutcome``)
 ==================== ======== ============================================
-
-``"resumable"`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,9 +29,6 @@ from repro_torch.common.types import EventLog, ExchangePlan
 
 ENGINES = ("oneshot", "streaming", "generated", "generated_streaming",
            "resumable")
-_UNPORTED_ENGINES = {
-    "resumable": "ROADMAP.md Queue 1, item 5",
-}
 
 
 def run(source, num_sites: Optional[int] = None, *, nodes: int,
@@ -46,14 +44,10 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
     ``backend``, ``return_shuffle_stats``, ...) pass through. Runs on the
     card unless ``device="cpu"``.
     """
-    from repro_torch.core import runner
+    from repro_torch.core import resume, runner
 
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; have {ENGINES}")
-    if engine in _UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet "
-            f"({_UNPORTED_ENGINES[engine]})")
     is_log = isinstance(source, EventLog)
     if is_log and num_sites is None:
         raise ValueError("an EventLog source requires num_sites=")
@@ -66,10 +60,11 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
             source, num_sites, nodes=nodes, plan=plan, device=device,
             **kwargs)
     if is_log:
-        if engine in ("generated", "generated_streaming"):
+        if engine in ("generated", "generated_streaming", "resumable"):
             raise ValueError(
-                f"engine {engine!r} regenerates records on the device and "
-                f"needs a MalGen SeedInfo source, not an EventLog")
+                f"engine {engine!r} regenerates records on device and "
+                f"needs a MalGen SeedInfo source, not a materialized "
+                f"EventLog (use engine='oneshot' or 'streaming')")
         fn = (runner.malstone_run_streaming if engine == "streaming"
               else runner.malstone_run)
         return fn(source, num_sites, nodes=nodes, plan=plan, device=device,
@@ -80,6 +75,10 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
         return runner.malstone_run_streaming(
             source, num_sites or cfg.num_sites, nodes=nodes, plan=plan,
             cfg=cfg, device=device, **kwargs)
+    if engine == "resumable":
+        return resume.malstone_run_resumable(
+            source, cfg, nodes=nodes, num_sites=num_sites, plan=plan,
+            device=device, **kwargs)
     fn = (runner.malstone_run_generated_streaming
           if engine == "generated_streaming" else runner.malstone_run_generated)
     return fn(source, cfg, nodes=nodes, num_sites=num_sites, plan=plan,

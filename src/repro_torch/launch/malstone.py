@@ -25,6 +25,17 @@ asserts that the run's rho bit-equals the single-device oracle computed on
 the CPU over the same records (exit 1 on a mismatch), and ``--bench-json
 PATH`` writes the run as a BENCH document (``repro_torch/bench/
 schema.py``).
+
+``--checkpoint-dir DIR`` makes the streaming run resumable: it runs in
+segments of ``--segment-chunks`` chunks a node, saving the state after each
+(``repro_torch.core.resume``); ``--resume`` continues a preempted run from
+the latest committed checkpoint, regenerating only the chunks not yet
+folded, bit-identical to an uninterrupted run. ``--inject-faults`` runs a
+seeded fault schedule (``repro_torch.faults.FaultPlan.parse``) under the
+bounded retry (``--retry-attempts``) and NodeDoctor rerouting. These flags
+need ``--stream-chunks``; with ``--gen-device``, ``--check`` or
+``--overlap on|off`` they are an argparse error (the JAX launcher ignores
+the last two on this path).
 """
 
 from __future__ import annotations
@@ -128,6 +139,24 @@ def main(argv=None):
                     help="after the timed runs, assert the computed rho"
                          " bit-equals the single-device oracle run on the"
                          " CPU over the same records (exit 1 on mismatch)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="make the streaming run resumable: run it in"
+                         " segments, checkpointing the state after each"
+                         " into DIR (requires --stream-chunks; incompatible"
+                         " with --gen-device)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest committed checkpoint in"
+                         " --checkpoint-dir (default: start fresh)")
+    ap.add_argument("--segment-chunks", type=int, default=0, metavar="K",
+                    help="chunks per checkpointed segment (default:"
+                         " --stream-chunks, i.e. one segment)")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="seeded fault schedule, e.g. 'transient_rate=0.2,"
+                         "seed=5,bad_hosts=1+3,kill_at_segment=2' (see"
+                         " repro_torch.faults.FaultPlan.parse)")
+    ap.add_argument("--retry-attempts", type=int, default=3,
+                    help="total tries per segment before"
+                         " SegmentRetriesExhausted (resumable runs)")
     ap.add_argument("--bench-json", default=None, metavar="PATH",
                     help="also write this run as a BENCH_*.json document"
                          " (schema: repro_torch/bench/schema.py) for"
@@ -151,6 +180,20 @@ def main(argv=None):
         ap.error("--check compares against the single-device oracle over"
                  " the materialized records; it does not cover"
                  " --gen-device")
+    resumable = args.checkpoint_dir is not None or args.inject_faults
+    if resumable:
+        if not args.stream_chunks:
+            ap.error("--checkpoint-dir/--inject-faults need --stream-chunks"
+                     " (resumable runs segment the streaming scan)")
+        if args.gen_device:
+            ap.error("--checkpoint-dir/--inject-faults are incompatible"
+                     " with --gen-device")
+        if args.check:
+            ap.error("--check is not run on the resumable path"
+                     " (--checkpoint-dir/--inject-faults)")
+        if args.overlap != "auto":
+            ap.error("--overlap on/off is not run on the resumable path"
+                     " (--checkpoint-dir/--inject-faults)")
     chunk = (args.records_per_node // args.stream_chunks
              if args.stream_chunks else 0)
 
@@ -164,6 +207,8 @@ def main(argv=None):
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {kind}; backend: {args.backend}")
+    if resumable:
+        return _run_resumable(args, device, cfg, chunk, plan)
 
     streaming_seed = args.stream_chunks and not args.gen_device
     if streaming_seed:
@@ -309,6 +354,96 @@ def main(argv=None):
             records=total, derived=shuffle_derived)
         out = schema.write_document(doc, path=args.bench_json)
         print(f"wrote {out}")
+
+
+def _run_resumable(args, device, cfg, chunk, exchange_plan):
+    """The --checkpoint-dir / --inject-faults path: one segment-at-a-time
+    run through ``repro_torch.core.resume`` (bit-identical to the
+    uninterrupted streaming engine), wall-clocked once: re-running it
+    would resume instead of compute, so the single sample goes through
+    ``timing_from_samples`` into the same BENCH document."""
+    from repro_torch.bench.timing import synchronize
+    from repro_torch.core.resume import ResumableRunner
+    from repro_torch.faults import FaultPlan, RetryPolicy
+
+    total = args.nodes * args.records_per_node
+    num_chunks = args.nodes * args.stream_chunks
+    seg = args.segment_chunks or args.stream_chunks
+    plan = FaultPlan.parse(args.inject_faults) if args.inject_faults else None
+
+    print(f"MalGen (streaming, resumable): {total:,} records "
+          f"({total * 100 / 1e6:.0f} MB logical) over {args.nodes} nodes "
+          f"x {args.stream_chunks} chunks of {chunk:,}; checkpoint every "
+          f"{seg} chunks"
+          + (f" -> {args.checkpoint_dir}" if args.checkpoint_dir else
+             " (no checkpoint dir — faults only)"))
+    seed, ms = _timed(lambda: make_seed_streaming(
+        0, cfg, num_chunks, chunk, device=device), device)
+    print(f"  seeded in {ms / 1e3:.1f}s "
+          f"(scatter payload {seed.seed_bytes / 1e6:.1f} MB)")
+    if plan is not None:
+        print(f"  fault schedule: {plan}")
+
+    runner = ResumableRunner(
+        seed, cfg, nodes=args.nodes, num_chunks=num_chunks,
+        chunk_records=chunk, segment_chunks=seg, backend=args.backend,
+        statistic=args.statistic, plan=exchange_plan, device=device)
+    synchronize()
+    t0 = time.perf_counter()
+    out = runner.run(checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+                     faults=plan,
+                     retry=RetryPolicy(max_attempts=args.retry_attempts))
+    synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    timing = timing_from_samples([wall_us])
+    rep = out.report
+
+    print(f"MalStone {args.statistic} [{args.backend}, resumable "
+          f"x{args.stream_chunks}/seg{seg}] {wall_us / 1e3:.1f} ms "
+          f"({rep.segments_run}/{rep.segments_total} segments run, "
+          f"{rep.chunks_skipped} chunks restored)")
+    if rep.resumed_from_step is not None:
+        print(f"  resumed from checkpoint step {rep.resumed_from_step}")
+    print(f"  checkpoint: save {rep.checkpoint_save_ms:.1f} ms total, "
+          f"restore {rep.checkpoint_restore_ms:.1f} ms")
+    if plan is not None:
+        print(f"  recovery: {rep.fault_events} injected faults, "
+              f"{rep.segments_retried} segment retries, alarmed hosts "
+              f"{rep.alarmed_hosts}, {rep.rerouted_shards} shards rerouted")
+
+    derived = rep.to_derived()
+    derived["segment_chunks"] = seg
+    if out.shuffle_stats is not None:
+        stats = out.shuffle_stats
+        derived.update(
+            capacity_factor=args.capacity_factor,
+            shuffle_rounds=int(stats.rounds),
+            shuffle_sent=int(stats.sent),
+            shuffle_overflow=int(stats.overflow),
+            shuffle_bytes_exchanged=int(stats.bytes_exchanged))
+        print(f"  shuffle: rounds={derived['shuffle_rounds']} "
+              f"sent={derived['shuffle_sent']} overflow=0 (lossless)")
+
+    if args.bench_json:
+        stat_slug = args.statistic.lower().replace("-", "")
+        scenario = f"launch_malstone_{stat_slug}_{args.backend}_resume"
+        doc = schema.new_document(
+            pathlib.Path(args.bench_json).stem.removeprefix("BENCH_"),
+            device=device, env={"source": "repro_torch.launch.malstone"})
+        schema.add_result(
+            doc, scenario,
+            {"backend": args.backend, "statistic": args.statistic,
+             "engine": "resumable", "nodes": args.nodes,
+             "records_per_node": args.records_per_node,
+             "sites": args.sites, "entities": args.entities,
+             "stream_chunks": args.stream_chunks, "segment_chunks": seg,
+             "resume": args.resume,
+             "inject_faults": args.inject_faults or "",
+             "capacity_factor": args.capacity_factor,
+             "exchange_impl": args.exchange_impl},
+            timing, records=rep.chunks_processed * chunk, derived=derived)
+        path = schema.write_document(doc, path=args.bench_json)
+        print(f"wrote {path}")
 
 
 if __name__ == "__main__":

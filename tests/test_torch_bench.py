@@ -6,7 +6,7 @@ mirrored):
   package passing the other's validator;
 - compare: the same report from both packages on the same pair of
   documents, and the CLI's exit codes 0 / 1 / 2;
-- the registry: JAX's scenario names minus the eight the port does not
+- the registry: JAX's scenario names minus the three the port does not
   register yet, with equal groups and params; the kernel pairs' inputs;
   the smoke selection; every scenario callable on the CPU at a tiny scale;
   the overlap pair's shared measurement and JAX's derived keys;
@@ -34,11 +34,9 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = registry.Scale(records_per_node=512, num_sites=64, num_entities=256,
                       chunk_records=256, warmup=1, iters=1)
-# JAX scenarios whose modules the port does not have yet (ROADMAP.md
-# Queue 1 items 5 and 7)
+# JAX scenarios whose module the port does not have yet (ROADMAP.md
+# Queue 1 item 7, the multi-process launcher)
 UNREGISTERED = {
-    "resume_overhead_nockpt", "resume_overhead_ckpt",
-    "resume_overhead_resume", "faulty_run_transient", "faulty_run_badhost",
     "sweep_multiproc_p1", "sweep_multiproc_p2", "sweep_multiproc_p4",
 }
 
@@ -273,7 +271,7 @@ def test_scenarios_are_jax_minus_the_unregistered():
     want = set(jax_registry.SCENARIOS) - UNREGISTERED
     assert len(jax_registry.SCENARIOS) == 69
     assert UNREGISTERED <= set(jax_registry.SCENARIOS)
-    assert set(registry.SCENARIOS) == want and len(want) == 61
+    assert set(registry.SCENARIOS) == want and len(want) == 66
     for name, sc in registry.SCENARIOS.items():
         jsc = jax_registry.SCENARIOS[name]
         assert (sc.group, sc.params) == (jsc.group, jsc.params), name
@@ -291,9 +289,9 @@ def test_smoke_selection_is_jax_minus_the_unregistered():
     jax_smoke = jax_registry.preset_scenario_names("smoke")
     smoke = registry.preset_scenario_names("smoke")
     assert len(jax_smoke) == 47
-    assert len(set(jax_smoke) & UNREGISTERED) == 7
+    assert len(set(jax_smoke) & UNREGISTERED) == 2
     assert smoke == [n for n in jax_smoke if n not in UNREGISTERED]
-    assert len(smoke) == 40
+    assert len(smoke) == 45
     assert {"streaming_overlap_on", "streaming_overlap_off"} <= set(smoke)
     assert registry.preset_scenario_names("full") == list(registry.SCENARIOS)
     with pytest.raises(ValueError):
@@ -441,4 +439,4 @@ def test_run_cli_writes_a_valid_document(tmp_path):
         [sys.executable, "-m", "repro_torch.bench.run", "--list"],
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert listing.returncode == 0
-    assert "(40/61)" in listing.stdout
+    assert "(45/66)" in listing.stdout

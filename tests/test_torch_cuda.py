@@ -892,3 +892,123 @@ def test_k6_on_a_side_stream_equals_plain(cuda_device, n):
     side.synchronize()
     torch.testing.assert_close(got, ps.powerlaw_sample_plain(u, cdf),
                                rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ resumable
+def _resume_case(device, backend, cpn=4, chunk=1 << 15, nodes=4):
+    from repro_torch.core.resume import ResumableRunner
+    from repro_torch.malgen import make_seed_streaming
+
+    cfg = MalGenConfig(num_sites=20_000, num_entities=50_000)
+    plan = ExchangePlan(impl="counting", capacity_factor=0.5) \
+        if backend == "mapreduce" else ExchangePlan()
+    seed = make_seed_streaming(3, cfg, nodes * cpn, chunk, device=device)
+    runner = ResumableRunner(seed, cfg, nodes=nodes, num_chunks=nodes * cpn,
+                             chunk_records=chunk, segment_chunks=2,
+                             backend=backend, plan=plan, device=device)
+    return cfg, plan, seed, runner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ("streams", "sphere", "mapreduce",
+                                     "mapreduce_combiner"))
+def test_resumable_equals_the_streaming_engine_on_the_card(cuda_device,
+                                                           backend,
+                                                           tmp_path):
+    """Segmented, checkpointed, killed at a boundary and resumed: the same
+    histogram, rho bits and ShuffleStats as the streaming engine; the
+    restored carry lies on the card."""
+    from repro_torch.core import malstone_run_streaming
+    from repro_torch.faults import FaultPlan, SimulatedKill
+
+    cfg, plan, seed, runner = _resume_case(cuda_device, backend)
+    want, ws = malstone_run_streaming(
+        seed, cfg.num_sites, nodes=4, cfg=cfg, num_chunks=16,
+        chunk_records=1 << 15, backend=backend, plan=plan,
+        device=cuda_device, return_shuffle_stats=True)
+    with pytest.raises(SimulatedKill):
+        runner.run(checkpoint_dir=str(tmp_path),
+                   faults=FaultPlan(kill_at_segment=1, kill_mode="raise"))
+    for out in (runner.run(), runner.run(checkpoint_dir=str(tmp_path))):
+        assert torch.equal(out.result.total, want.total)
+        assert torch.equal(out.result.rho.view(torch.int32),
+                           want.rho.view(torch.int32))
+        assert _stats(out.shuffle_stats) == _stats(ws)
+        assert out.result.rho.device.type == "cuda"
+    assert out.report.resumed_from_step == 1
+
+
+@pytest.mark.cuda
+def test_resumable_launches_the_path_kernels(cuda_device):
+    """A fault-free mapreduce run: K6 twice a node a step, K1 and K2 a
+    step, K3 at least a step, K7 once; a run with a bad host adds one K7 a
+    diagnosis."""
+    from repro_torch.faults import FaultPlan, RetryPolicy
+
+    _, _, _, runner = _resume_case(cuda_device, "mapreduce")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    runner.run()
+    got = launch_counts()
+    assert got["powerlaw_sample"] == 2 * 4 * 4
+    assert got["count_scatter.count"] == got["count_scatter.scatter"] == 4
+    assert got["segment_hist.packed"] >= 4
+    assert got["windowed_ratio"] == 1
+    assert got["segment_hist"] == got["windowed_ratio.masked"] == 0
+    reset_launch_counts()
+    out = runner.run(faults=FaultPlan(bad_hosts=(0,), kill_mode="raise"),
+                     retry=RetryPolicy(max_attempts=6, backoff_s=0.0),
+                     num_hosts=4)
+    assert out.report.alarmed_hosts == [0]
+    assert launch_counts()["windowed_ratio"] == \
+        1 + out.report.segments_retried
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets", (8, 52))
+def test_nodedoctor_runs_k7_and_equals_the_cpu(cuda_device, buckets):
+    """The diagnosis on the card launches K7 once, and its report equals
+    the CPU's bit for bit (K7 equals its plain version; the CUSUM's adds
+    are IEEE float32 adds in one order on both)."""
+    from repro_torch.core.nodedoctor import diagnose_telemetry
+    from repro_torch.kernels.windowed_ratio import ops as wr
+
+    rng = np.random.default_rng(buckets)
+    n = 4000
+    host = rng.integers(0, 6, n)
+    cols = (host, np.arange(n), rng.integers(0, buckets, n),
+            rng.random(n) < np.where(host == 2, 0.4, 0.03))
+    reset_launch_counts()
+    got = diagnose_telemetry(*cols, num_hosts=6, num_buckets=buckets,
+                             device=cuda_device)
+    assert launch_counts()["windowed_ratio"] == 1
+    want = diagnose_telemetry(*cols, num_hosts=6, num_buckets=buckets,
+                              device="cpu")
+    for f in ("rho", "cusum"):
+        assert torch.equal(getattr(got, f).cpu().view(torch.int32),
+                           getattr(want, f).view(torch.int32)), f
+    assert torch.equal(got.alarm.cpu(), want.alarm)
+    assert torch.equal(got.suspect_rank.cpu(), want.suspect_rank)
+    hist = torch.zeros(6, buckets, 2, dtype=torch.int32)
+    np.add.at(hist.numpy(), (cols[0], cols[2], 0), 1)
+    np.add.at(hist.numpy(), (cols[0], cols[2], 1), cols[3].astype(np.int32))
+    hist = hist.to(cuda_device)
+    for a, b in zip(wr.windowed_ratio(hist), wr.windowed_ratio_plain(hist)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_like_device(cuda_device, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    state = {"carry": torch.arange(12, dtype=torch.int32,
+                                   device=cuda_device).reshape(3, 4),
+             "emb": torch.randn(5, device=cuda_device).to(torch.bfloat16),
+             "chunks_done": np.int32(2)}
+    save_checkpoint(tmp_path, 1, state, num_shards=2)
+    got = load_checkpoint(tmp_path, 1, state)
+    assert got["carry"].device.type == got["emb"].device.type == "cuda"
+    assert got["chunks_done"].device.type == "cpu"
+    assert torch.equal(got["carry"], state["carry"])
+    assert torch.equal(got["emb"].view(torch.int16),
+                       state["emb"].view(torch.int16))

@@ -39,8 +39,28 @@ def test_malstone_cloud_matches_the_oracle_on_the_cpu(capsys):
         assert text.count(f"\n{backend:<12} ") == 2
 
 
+def test_node_doctor_prints_what_the_jax_example_prints(capsys):
+    """The same telemetry, the same table, the same suspects and the same
+    final check (host 11 alone alarms). On this telemetry the check fails
+    in both: host 1's CUSUM peaks at 6.31, over the threshold of 6, so
+    both examples refuse, naming the same hosts."""
+    import runpy
+
+    with pytest.raises(AssertionError):
+        runpy.run_path(str(ROOT / "examples" / "node_doctor.py"),
+                       run_name="__main__")
+    want = capsys.readouterr().out
+    with pytest.raises(SystemExit, match=r"got \[1, 11\]"):
+        _example("node_doctor_torch").main(["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert got == want
+    assert got.count("<-- blocklist") == 2
+    assert "top suspects: [11, 8, 2] (truth: 11)" in got
+
+
 @pytest.mark.parametrize("name", ("quickstart_torch",
-                                  "malstone_cloud_torch"))
+                                  "malstone_cloud_torch",
+                                  "node_doctor_torch"))
 def test_examples_refuse_to_fall_back_to_the_cpu(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -34,6 +34,7 @@ def _env():
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
                                          env.get("PYTHONPATH", "")])
     env["JAX_PLATFORMS"] = "cpu"
+    env.pop("XLA_FLAGS", None)
     return env
 
 

@@ -298,7 +298,7 @@ def test_plan_and_entry_point_contracts():
     log = EventLog(*[torch.zeros(8, dtype=torch.int32) for _ in COLS])
     with pytest.raises(ValueError, match="unknown backend"):
         malstone_run(log, 4, nodes=2, backend="hadoop", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="needs a MalGen SeedInfo"):
         run(log, 4, nodes=2, engine="resumable", device="cpu")
     assert resolve_exchange_impl("auto", 1 << 25, 52) == "columns"
     with pytest.raises(ValueError, match="one-word projection"):

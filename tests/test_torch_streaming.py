@@ -495,5 +495,8 @@ def test_streaming_contracts():
             records_per_shard=128, chunk_records=100, device="cpu")
     with pytest.raises(ValueError, match="SeedInfo"):
         run(log, 301, nodes=2, engine="generated_streaming", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        run(seed, nodes=2, engine="resumable", cfg=TCFG, device="cpu")
+    with pytest.raises(ValueError, match="needs a MalGen SeedInfo"):
+        run(log, 301, nodes=2, engine="resumable", device="cpu")
+    with pytest.raises(ValueError, match="segment_chunks"):
+        run(seed, nodes=2, engine="resumable", cfg=TCFG, num_chunks=4,
+            chunk_records=64, segment_chunks=3, device="cpu")
