@@ -88,10 +88,12 @@
    also on the MalGen unmarked CDF at a node's draws and at a service
    step's chunk sizes, the wrapper against ``torch.searchsorted`` with
    the host work of both; (c) the
-   port's ``smoke`` selection (42 scenarios: the overlap pair is left
+   port's ``smoke`` selection (44 scenarios: the overlap pair is left
    out, since its 64-record chunks would take 16,384 steps a node at this
    depth, and ``faulty_run_transient``, whose schedule exhausts its
-   retries at 8 nodes, runs at the bench's 2 in phase 10) at the same widths, 8 nodes x 2^20 records, into a document
+   retries at 8 nodes, runs at the bench's 2 in phase 10; the two
+   ``sweep_multiproc`` rows run the launcher as a gang of 1 and 2
+   processes) at the same widths, 8 nodes x 2^20 records, into a document
    that must validate and compare clean against itself; prints its
    records/s and queries/s.
 9. Overlap (``repro_torch.core.overlap``): (a) K6 launched on a
@@ -139,10 +141,30 @@
    ``faulty_run_transient`` at 2 nodes through ``run_scenarios``, its
    runner and plan run again and held against the streaming engine; the
    temporary directory is removed.
+11. Gangs of processes (``launch/coordinator.py``; the worker script
+   ``tools/gang_check.py``) whose ranks share the card and join over
+   gloo, each holding P/N of the 8 nodes, at ``MalGenConfig()`` widths,
+   8 nodes x 8 steps of 2^20 records: mapreduce counting at N = 1, 2 and
+   4 ranks in 3 interleaved turns, and at N = 2 (first turn) streams and
+   the overlap runner on and off. Every rank's histogram, rho bits and
+   ShuffleStats equal this process's one-process engine over the same
+   seed, and every rank launches exactly its nodes' kernels (K6 twice a
+   local node a step, K1 and K2 once a step, K3 once a round or K4 once a
+   step, K7 once; counts set to 0 by each rank just before its run and
+   read just after). Prints the run ms by N (rank 0's CUDA events after a
+   barrier; the median of the turns), the exchange's bytes handed to gloo
+   and its host-clock parts (waiting for the card, the copy to pinned
+   memory, gloo, the copy back), peak memory a rank and rank 0's idle
+   share. Then the launcher's one-shot log at N = 2 with ``--check``: each
+   rank's rho bit-equals its CPU oracle. A gang that fails or outlives
+   its timeout (its session killed whole) fails the script. Phase 2 also
+   holds K3 over the rows of nodes first_node .. P - 1, as a rank holds
+   them, at P in {4, 8} and first_node in {1, 3, P - 1}.
 
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
-phase 10's two fault-free runs, mapreduce and streams), then the card's
+phase 10's two fault-free runs, mapreduce and streams, ``gang_launches``
+from rank 0 of phase 11's mapreduce gang of 2), then the card's
 name and power limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
 last line. Exits non-zero, printing no result, without a CUDA device or
 when the repository's ``src/`` is not beside this file; any failed check
@@ -203,6 +225,19 @@ RESUME_STREAMS_STEPS = 4
 RESUME_TURNS = 5
 RESUME_HOSTS = 4
 BENCH_TRANSIENT = "faulty_run_transient"
+# phase 11: gangs of processes over gloo sharing the card, at the service's
+# widths and depth (gang_check's "full" width: 8 x 8 x 2^20 records);
+# mapreduce counting at every gang size, streams and the overlap runner at
+# 2 ranks
+GANG_SIZES = (1, 2, 4)
+GANG_TURNS = 3
+GANG_MAIN = "seed_mapreduce_counting"
+GANG_CASES = {1: (GANG_MAIN,),
+              2: (GANG_MAIN, "seed_streams",
+                  "seed_mapreduce_counting_overlap_on",
+                  "seed_mapreduce_counting_overlap_off"),
+              4: (GANG_MAIN,)}
+GANG_TIMEOUT = 300
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
 GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
 FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
@@ -451,10 +486,52 @@ def kernel_edge_cases(device) -> None:
                                      .sum()), "bit-31 sites were dropped")
     k4 = k4_edge_cases(g, device)
     hot = hot_site_cases(device)
+    first = k3_first_node_cases(g, device)
     log("kernel", f"K1/K2 bit-equal to plain on {len(cases) * 5} edge "
-                  f"cases, K3 on {4 + hot['K3']}, K4 on {k4 + hot['K4']}; "
-                  f"the hot lists equal their plain version on "
-                  f"{hot['lists']}")
+                  f"cases, K3 on {4 + hot['K3'] + first}, K4 on "
+                  f"{k4 + hot['K4']}; the hot lists equal their plain "
+                  f"version on {hot['lists'] + first // 2}")
+
+
+def k3_first_node_cases(g, device) -> int:
+    """K3 over the rows of nodes first_node .. P - 1, as a rank of a gang
+    holds them (phase 11), at P in {4, 8} and first_node in {1, 3, P - 1}:
+    random words (owned, foreign, zero and bit-31 words) and words all on
+    one site, at 2^20 a row. The histogram and the hot list equal
+    their plain versions and the one-process launch's rows. Returns the
+    number of cases."""
+    from repro_torch.kernels.segment_hist import ops as sh
+
+    count = 0
+    for p in (4, 8):
+        s_local = 12_500
+        one_site = case_words(hist_case("one site", p, 1 << 20, s_local * p,
+                                        52, g), p, s_local)
+        for kind, words in (
+                ("random", packed_words_case(40 + p, p, 1 << 20, s_local,
+                                             52, device)),
+                ("one site", one_site.to(device))):
+            kw = dict(num_sites_local=s_local, num_partitions=p,
+                      num_weeks=52)
+            every = sh.segment_hist_packed_words(words, **kw)
+            for first in (1, 3, p - 1):
+                mine = words[first:].contiguous()
+                what = f"K3 {kind} P={p} first_node={first}"
+                got = sh.segment_hist_packed_words(mine, first_node=first,
+                                                   **kw)
+                exact(what, got, sh.segment_hist_packed_words_plain(
+                    mine, first_node=first, **kw))
+                exact(f"{what} against the one-process rows", got,
+                      every[first:])
+                geo = sh.launch_geometry(mine, mine.shape[1], 52)
+                exact(f"{what} hot list",
+                      sh.segment_hist_packed_hot_sites(
+                          mine, first_node=first, **kw),
+                      sh.hot_sites_plain(sh.word_sites(
+                          mine, first_node=first, **kw), geo.sample,
+                          geo.threshold))
+                count += 2
+    return count
 
 
 def k4_edge_cases(g, device) -> int:
@@ -1873,7 +1950,7 @@ def bench_smoke(device) -> None:
     t0 = time.perf_counter()
     skipped = run_scenarios(names, scale, ctx, doc)
     wall = time.perf_counter() - t0
-    check(not skipped and len(doc["results"]) == len(names) == 42,
+    check(not skipped and len(doc["results"]) == len(names) == 44,
           f"smoke selection: {len(doc['results'])} rows, skipped {skipped}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
         path = schema.write_document(doc, pathlib.Path(tmp) / "BENCH.json")
@@ -2878,6 +2955,183 @@ def resumable(device) -> dict:
     return result
 
 
+# ------------------------------------------------------------- phase 11
+def gang_tool():
+    """``tools/gang_check.py``, the gang's worker script, as a module."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import gang_check
+
+    return gang_check
+
+
+def run_in_session(args, timeout: float) -> tuple:
+    """(exit status, stdout, stderr) of ``python args``, run in a session
+    of its own: at the timeout the whole session (a gang's parent and its
+    ranks) is killed, and the status is 124."""
+    from repro_torch.launch import coordinator
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return coordinator.run_in_session([sys.executable, *args], cwd=ROOT,
+                                      env=env, timeout=timeout)
+
+
+def gang_launches(stepper, rounds, ranks: int) -> dict:
+    """A rank's exact launches of one run of a gang of ``ranks`` over the
+    stepper's chunks: K6 for the marked and unmarked draws of each of its
+    nodes a step, K1 and K2 a step and K3 a round (mapreduce) or K4 a step
+    (streams), K7 once (every rank finalizes)."""
+    want = runner_launches(stepper, rounds)
+    want["powerlaw_sample"] //= ranks
+    return want
+
+
+def gang(device, width: str = "full") -> dict:
+    """Phase 11: gangs of ``tools/gang_check.py`` over gloo, their ranks
+    sharing the card, at ``MalGenConfig()`` widths and 8 nodes x 8 steps of
+    2^20 records: mapreduce counting at N = 1, 2 and 4 ranks in 3
+    interleaved turns, and at N = 2 (first turn) streams and the overlap
+    runner on and off. Every rank's histogram, rho bits and ShuffleStats
+    equal this process's one-process engine; each rank launches exactly
+    its nodes' kernels. Then the launcher's one-shot log at N = 2 with
+    ``--check``. (``width="small"`` is gang_check's test width, for a
+    rehearsal on the CPU.)"""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.common.types import ExchangePlan
+    from repro_torch.core.overlap import OverlapStreamingRunner
+
+    t_phase = time.perf_counter()
+    gc = gang_tool()
+    inputs = gc.make_inputs(width, NODES, device, with_log=False)
+    cases = sorted({c for v in GANG_CASES.values() for c in v})
+    want = {c: gc.result_arrays(*gc.case_result(c, inputs, NODES, device))
+            for c in cases}
+    expected = {}
+    for backend in ("mapreduce", "streams"):
+        stepper = OverlapStreamingRunner(
+            inputs.seed, inputs.cfg, nodes=NODES,
+            num_chunks=inputs.num_chunks, chunk_records=inputs.chunk_records,
+            backend=backend, device=device,
+            plan=ExchangePlan(impl="counting", histogram_impl="kernel"))
+        expected[backend] = (stepper, step_rounds(stepper)
+                             if backend == "mapreduce" else None)
+    cfg, rpn = inputs.cfg, inputs.num_chunks // NODES * inputs.chunk_records
+    total = NODES * rpn
+    del inputs
+    sync(device)
+    result = {"ms": {n: [] for n in GANG_SIZES}, "clock": {}, "peak_gib": {},
+              "idle_share": {}, "launches": {}}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_gang_"))
+    try:
+        for turn in range(GANG_TURNS):
+            order = GANG_SIZES if turn % 2 == 0 else GANG_SIZES[::-1]
+            for n in order:
+                names = GANG_CASES[n] if turn == 0 else (GANG_MAIN,)
+                out = root / f"t{turn}n{n}"
+                t0 = time.perf_counter()
+                rc, stdout, stderr = run_in_session(
+                    [str(ROOT / "tools" / "gang_check.py"),
+                     "--num-processes", str(n), "--nodes", str(NODES),
+                     "--width", width, "--device", device.type,
+                     "--runs", "1", "--out", str(out),
+                     "--timeout", str(GANG_TIMEOUT - 30), "--cases", *names]
+                    + (["--profile"] if turn == 0 else []), GANG_TIMEOUT)
+                wall = time.perf_counter() - t0
+                check(rc == 0, f"gang of {n} exited {rc}: "
+                               f"{stdout[-2000:]}\n{stderr[-3000:]}")
+                ranks = [dict(np.load(out / f"rank{r}.npz"))
+                         for r in range(n)]
+                for name in names:
+                    backend = gc.CASES[name]["backend"]
+                    stepper, rounds = expected[backend]
+                    launches = gang_launches(stepper, rounds, n)
+                    for r, got in enumerate(ranks):
+                        key = f"P{NODES}/{name}/"
+                        for field, value in want[name].items():
+                            a, b = got[key + field], value
+                            if field == "rho":
+                                a, b = a.view("int32"), b.view("int32")
+                            check(a.shape == b.shape and (a == b).all(),
+                                  f"gang of {n}, rank {r}, {name}: {field} "
+                                  f"differs from the one-process engine")
+                        got_l = {k: int(got[key + f"launches_{k}"])
+                                 for k in launches}
+                        check(got_l == launches,
+                              f"gang of {n}, rank {r}, {name}: launches "
+                              f"{got_l}, expected {launches}")
+                        if r == 0:
+                            counted = got_l
+                    r0 = ranks[0]
+                    key = f"P{NODES}/{name}/"
+                    if name == GANG_MAIN:
+                        result["ms"][n].append(float(r0[key + "ms"][0]))
+                    if turn == 0:
+                        tag = f"N={n} {name}"
+                        result["launches"][tag] = counted   # rank 0's
+                        result["clock"][tag] = {
+                            k: float(r0[key + f"clock_{k}"]) for k in
+                            ("bytes", "calls", "wait_ms", "d2h_ms",
+                             "gloo_ms", "h2d_ms")}
+                        # (a CPU rehearsal has neither)
+                        result["peak_gib"][tag] = [
+                            int(g[key + "peak_bytes"]) / 2**30
+                            if key + "peak_bytes" in g else None
+                            for g in ranks]
+                        result["idle_share"][tag] = (
+                            float(r0[key + "idle_share"])
+                            if key + "idle_share" in r0 else None)
+                        stats = [int(v) for k, v in want[name].items()
+                                 if k.startswith("stats_")]
+                        log("gang", f"{tag}: {n} rank(s) equal the "
+                                    f"one-process engine (histogram, rho "
+                                    f"bits, ShuffleStats {stats}); launches "
+                                    f"a rank {json.dumps(counted)}; run ms "
+                                    f"{float(r0[key + 'ms'][0]):.3f}; "
+                                    f"exchange, rank 0, "
+                                    f"{json.dumps(result['clock'][tag])}; "
+                                    f"peak GiB a rank "
+                                    f"{result['peak_gib'][tag]}; rank 0 idle "
+                                    f"share {result['idle_share'][tag]}")
+                log("gang", f"turn {turn}: gang of {n} in {wall:.1f} s wall "
+                            f"(processes started, built, run)")
+
+        # the launcher's one-shot log, checked against its CPU oracle on
+        # every rank
+        rc, stdout, stderr = run_in_session(
+            ["-m", "repro_torch.launch.malstone", "--nodes", str(NODES),
+             "--num-processes", "2",
+             "--records-per-node", str(rpn), "--device", device.type,
+             "--sites", str(cfg.num_sites),
+             "--entities", str(cfg.num_entities),
+             "--backend", "mapreduce", "--exchange-impl", "counting",
+             "--capacity-factor", str(CAPACITY_FACTOR), "--runs", "2",
+             "--check"], GANG_TIMEOUT)
+        check(rc == 0 and stdout.count("bit-equals the single-device "
+                                       "oracle") == 2,
+              f"launcher one-shot gang of 2 exited {rc}: {stdout[-2000:]}"
+              f"\n{stderr[-3000:]}")
+        for line in stdout.splitlines():
+            if any(k in line for k in ("[process", "run ", "exchange,",
+                                       "--check", "shuffle:")):
+                log("gang", f"launcher one-shot N=2: {line.strip()}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    med = {n: statistics.median(v) for n, v in result["ms"].items()}
+    result["median_ms"] = med
+    card = card_line()
+    log("gang", f"[{card}] mapreduce counting, {total:,} records, "
+                f"{GANG_TURNS} interleaved turns; run ms by ranks "
+                f"{json.dumps(result['ms'])}; medians {json.dumps(med)}; "
+                f"N=2 / N=1 {med[2] / med[1]:.4f}, N=4 / N=1 "
+                f"{med[4] / med[1]:.4f}")
+    log("gang", f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2920,6 +3174,10 @@ def main() -> int:
             row["resume_launches"] = (res["launches"][row["name"]]
                                       + res["streams"]["launches"][
                                           row["name"]])
+        gangs = gang(device)
+        for row in kernels:
+            row["gang_launches"] = gangs["launches"][f"N=2 {GANG_MAIN}"][
+                row["name"]]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

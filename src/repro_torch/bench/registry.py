@@ -36,13 +36,14 @@ scenario. The registry covers:
   same run under a seeded fault schedule, with retry and NodeDoctor
   rerouting over 4 hosts).
 
+- the **multi-process sweep** ``sweep_multiproc_p{1,2,4}``: the launcher
+  as a gang of P processes over gloo (``launch/coordinator.py``), one node
+  each.
+
 The P nodes are a leading axis on one device, so a mesh sweep runs at any
 node count (the JAX package skips sizes above its device count). Random
 streams that JAX derives from ``jax.random.key(k)`` come from the port's
 integer ``rng_seed=k``: the same seed gives other records than JAX.
-
-Not registered yet: ``sweep_multiproc_p{1,2,4}`` (ROADMAP.md Queue 1
-item 7, the multi-process launcher).
 
 ``SCENARIOS[name].run(scale, ctx)`` times one scenario under
 ``repro_torch.bench.timing`` and returns a ``ScenarioResult`` for
@@ -656,6 +657,71 @@ for _ov in (True, False):
             effective={"nodes": ctx.nodes, "chunk_records": chunk})
 
 
+# ------------------------------------------------------- multi-process sweep
+# Each point runs the port's launcher as a P-process localhost gang over
+# gloo (one node a process, streaming mapreduce, statistic B, on the
+# context's device) and adopts the samples and shuffle accounting of the
+# BENCH document the gang's rank 0 writes; P=1 is the same launcher in one
+# process, the curve's baseline. On one card the ranks share it and the
+# exchange crosses the host, so the curve measures coordination overhead,
+# not speedup (as the JAX package's does on its one-core CI hosts).
+SWEEP_MULTIPROC_SIZES = (1, 2, 4)
+
+
+def _run_multiproc(scale: Scale, ctx: BenchContext, *,
+                   procs: int) -> ScenarioResult:
+    import os
+    import pathlib
+    import sys
+    import tempfile
+
+    from repro_torch.bench import schema
+    from repro_torch.bench.timing import timing_from_samples
+    from repro_torch.launch import coordinator
+
+    src_root = str(pathlib.Path(__file__).resolve().parents[2])
+    chunks = max(1, scale.records_per_node // scale.chunk_records)
+    sub_env = dict(os.environ)
+    sub_env["PYTHONPATH"] = (src_root + os.pathsep
+                             + sub_env.get("PYTHONPATH", ""))
+    # as the JAX package's sweep does: no device forcing leaks into the gang
+    sub_env.pop("XLA_FLAGS", None)
+    with tempfile.TemporaryDirectory(prefix="bench_multiproc_") as tmp:
+        out = os.path.join(tmp, f"BENCH_multiproc_p{procs}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.malstone",
+               "--nodes", str(procs), "--num-processes", str(procs),
+               "--records-per-node", str(scale.records_per_node),
+               "--sites", str(scale.num_sites),
+               "--entities", str(scale.num_entities),
+               "--stream-chunks", str(chunks),
+               "--backend", "mapreduce", "--statistic", "B",
+               "--runs", str(scale.iters), "--bench-json", out,
+               "--device", ctx.device.type]
+        rc, out_text, err_text = coordinator.run_in_session(
+            cmd, env=sub_env, timeout=1800)
+        if rc != 0:
+            raise RuntimeError(
+                f"sweep_multiproc_p{procs} gang failed ({rc}):\n"
+                f"{out_text[-2000:]}\n{err_text[-2000:]}")
+        res = schema.load_document(out)["results"][0]
+    timing = timing_from_samples(res["samples_us"], warmup_iters=1)
+    derived = dict(res.get("derived") or {})
+    derived["num_processes"] = procs
+    return ScenarioResult(
+        timing=timing, records=procs * scale.records_per_node,
+        derived=derived,
+        effective={"nodes": procs, "num_processes": procs})
+
+
+for _p in SWEEP_MULTIPROC_SIZES:
+    @_register(f"sweep_multiproc_p{_p}", "sweep",
+               {"sweep": "multiproc", "nodes": _p, "num_processes": _p,
+                "backend": "mapreduce", "statistic": "B",
+                "engine": "streaming"})
+    def _sweep_multiproc(scale, ctx, *, _p=_p):
+        return _run_multiproc(scale, ctx, procs=_p)
+
+
 # ------------------------------------------------------------------ resume
 # The checkpoint tax and fault recovery over repro_torch.core.resume, one
 # runner a scenario, over the context's streaming seed.
@@ -872,8 +938,8 @@ def _serving_sustained(scale: Scale, ctx: BenchContext) -> ScenarioResult:
 def preset_scenario_names(preset: str) -> list:
     """The scenarios a preset runs by default: ``full`` runs all;
     ``smoke`` (the JAX package's selection) keeps every backend and both
-    engines for B, one point per other statistic, no x4 sweep point and
-    one point of each shuffle code path."""
+    engines for B, one point per other statistic, no x4 sweep point, no
+    four-process gang and one point of each shuffle code path."""
     if preset not in PRESETS:
         raise ValueError(f"unknown preset {preset!r}; have {list(PRESETS)}")
     names = []
@@ -884,6 +950,10 @@ def preset_scenario_names(preset: str) -> list:
                         and sc.params["engine"] == "oneshot"):
                     continue
             if sc.group == "sweep" and sc.params.get("multiplier") == 4:
+                continue
+            if (sc.params.get("sweep") == "multiproc"
+                    and sc.params["num_processes"] > 2):
+                # p4 forks four processes: full preset only
                 continue
             if (sc.group == "lossless"
                     and name not in ("mapreduce_lossless_cf0p25",

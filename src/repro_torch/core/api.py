@@ -19,12 +19,18 @@ resumable            seed     ``malstone_run_resumable`` (``num_chunks``,
                               ``chunk_records``, ``segment_chunks``;
                               returns a ``ResumeOutcome``)
 ==================== ======== ============================================
+
+``group`` (a ``repro_torch.common.nodes.NodeGroup``) runs the oneshot and
+streaming engines in a gang of processes, each over its own nodes; the
+engines that generate shards in place and the resumable one are
+single-process, as in the JAX launcher.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.common.nodes import NodeGroup
 from repro_torch.common.types import EventLog, ExchangePlan
 
 ENGINES = ("oneshot", "streaming", "generated", "generated_streaming",
@@ -33,7 +39,8 @@ ENGINES = ("oneshot", "streaming", "generated", "generated_streaming",
 
 def run(source, num_sites: Optional[int] = None, *, nodes: int,
         engine: str = "oneshot", plan: Optional[ExchangePlan] = None,
-        cfg=None, partitioned: bool = False, device=None, **kwargs):
+        cfg=None, partitioned: bool = False, device=None,
+        group: Optional[NodeGroup] = None, **kwargs):
     """Run MalStone: route ``source`` x ``engine`` to its driver.
 
     ``nodes`` stands for the JAX mesh size. A log source needs
@@ -42,12 +49,19 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
     ``partitioned=True`` routes a log source with engine ``"oneshot"`` to
     ``malstone_run_partitioned``. Other keyword arguments (``statistic``,
     ``backend``, ``return_shuffle_stats``, ...) pass through. Runs on the
-    card unless ``device="cpu"``.
+    card unless ``device="cpu"``; ``group`` picks the nodes this process
+    runs (default: all ``nodes``).
     """
     from repro_torch.core import resume, runner
 
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; have {ENGINES}")
+    if group is not None:
+        if engine in ("oneshot", "streaming"):
+            kwargs["group"] = group
+        elif group.distributed:
+            raise ValueError(f"engine {engine!r} is single-process; a gang"
+                             f" runs the oneshot and streaming engines")
     is_log = isinstance(source, EventLog)
     if is_log and num_sites is None:
         raise ValueError("an EventLog source requires num_sites=")

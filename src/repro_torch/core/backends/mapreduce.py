@@ -16,16 +16,24 @@ Three exchanges ship every record to its owner, all lossless:
 ``mapreduce_combiner_histogram`` is MapReduce with a combiner: each node
 pre-reduces its records and only strided histogram blocks are shuffled.
 
-The P nodes are axis 0 of every tensor (``repro_torch.common.nodes``): one
-tensor op or one kernel launch serves all of them, the ``all_to_all`` is a
-transpose and the ``psum`` a sum over axis 0. The loop tests the global
-leftover count on the host once per round, where the JAX package tests it
-in its ``while_loop`` condition.
+A process's nodes are axis 0 of every tensor (``repro_torch.common.
+nodes``): one tensor op or one kernel launch serves all of them, the
+``all_to_all`` is a transpose and the ``psum`` a sum over axis 0. The loop
+tests the global leftover count on the host once per round, where the JAX
+package tests it in its ``while_loop`` condition.
 
-``ShuffleStats`` per node are int32 ``[P]`` tensors (``shuffle_stats``
-sums them over the nodes); ``capacity`` and ``rounds`` are the same on
-every node and are Python ints. ``bytes_exchanged`` follows the JAX
-package's int32 saturation rule (x64 off), so every field matches it.
+Every function takes a ``group`` (``NodeGroup``; default: one process with
+every node). In a gang of processes a process holds the rows of its own
+nodes, while the destinations, the site striding and the bucket bytes stay
+those of all P nodes; the leftover count a round loop tests is summed over
+the whole gang, so every process runs the same rounds and makes the same
+collectives.
+
+``ShuffleStats`` per node are int32 ``[P_local]`` tensors
+(``shuffle_stats`` sums them over all nodes); ``capacity`` and ``rounds``
+are the same on every node and are Python ints. ``bytes_exchanged``
+follows the JAX package's int32 saturation rule (x64 off), so every field
+matches it.
 """
 
 from __future__ import annotations
@@ -133,12 +141,13 @@ def _counting_words(words: torch.Tensor, dest: torch.Tensor,
     return count_scatter(words, dest, num_partitions)
 
 
-def order_words(log: EventLog, num_weeks: int, impl: str):
-    """Mapper side of every node of a ``[P, n]`` log: project each record
-    to its word (invalid rows -> the zero word, bound for the
-    pseudo-destination P) and order the words by destination, once.
-    Returns ``(words_sorted [P, n], starts [P, P+1])``."""
-    p = log.site_id.shape[0]
+def order_words(log: EventLog, num_weeks: int, impl: str,
+                group: Optional[nodes.NodeGroup] = None):
+    """Mapper side of every node of a ``[P_local, n]`` log: project each
+    record to its word (invalid rows -> the zero word, bound for the
+    pseudo-destination P) and order the words by destination ``site % P``,
+    once. Returns ``(words_sorted [P_local, n], starts [P_local, P+1])``."""
+    p = nodes.group_of_rows(group, log.site_id.shape[0]).nodes
     valid = log.valid_mask()
     dest = torch.where(valid, log.site_id % p,
                        torch.full_like(log.site_id, p)).to(torch.int32)
@@ -164,42 +173,48 @@ def _bytes_exchanged(rounds: int, parts: int, capacity: int,
 
 
 def ship_round(words_sorted: torch.Tensor, starts: torch.Tensor,
-               round_index: int, capacity: int):
+               round_index: int, capacity: int,
+               group: Optional[nodes.NodeGroup] = None):
     """One round's exchange: every node fills a ``[P, C]`` bucket per
     destination with window ``[r*C, (r+1)*C)`` of that destination's
     segment (zero words past its end), and the ``all_to_all`` delivers
-    them. Returns ``(shipped [P, P*C] words per receiver, live [P, P, C]
-    slot occupancy per sender)``."""
-    p, n = words_sorted.shape
+    them. Returns ``(shipped [P_local, P*C] words per receiver, live
+    [P_local, P, C] slot occupancy per sender)``."""
+    rows, n = words_sorted.shape
+    p = nodes.group_of_rows(group, rows).nodes
     lane = torch.arange(capacity, dtype=torch.int32,
                         device=words_sorted.device)
     idx = (starts[:, :-1] + round_index * capacity).unsqueeze(-1) + lane
     live = idx < starts[:, 1:].unsqueeze(-1)
     taken = words_sorted.gather(
-        1, idx.clamp_(max=max(n - 1, 0)).reshape(p, -1).to(torch.int64))
+        1, idx.clamp_(max=max(n - 1, 0)).reshape(rows, -1).to(torch.int64))
     buf = torch.where(live, taken.reshape(live.shape),
                       torch.zeros((), dtype=torch.int32,
                                   device=words_sorted.device))
-    return nodes.all_to_all(buf).reshape(p, p * capacity), live
+    return nodes.all_to_all(buf, group).reshape(rows, p * capacity), live
 
 
 def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
                         num_sites: int, num_weeks: int, capacity: int,
-                        max_rounds: int, word_histogram_fn=None):
+                        max_rounds: int, word_histogram_fn=None,
+                        group: Optional[nodes.NodeGroup] = None):
     """The round loop (JAX ``_word_shuffle_histogram`` body): round r
     ships window ``[r*C, (r+1)*C)`` of every destination segment of every
     node, the receivers reduce the words, and the loop stops when no
     record is left anywhere or ``max_rounds`` ran. Returns the owned
-    ``[P, S/P, W, 2]`` histograms and per-node ``ShuffleStats``."""
-    p = words_sorted.shape[0]
+    ``[P_local, S/P, W, 2]`` histograms and per-node ``ShuffleStats``."""
+    rows = words_sorted.shape[0]
+    group = nodes.group_of_rows(group, rows)
+    p = group.nodes
     dev = words_sorted.device
     s_local = num_sites // p
-    counts = starts[:, 1:] - starts[:, :-1]            # [P, P] per dest
-    node = torch.arange(p, device=dev).unsqueeze(1)
+    counts = starts[:, 1:] - starts[:, :-1]            # [P_local, P] a dest
+    node = group.node_ids(dev)
 
     def reduce_words(shipped: torch.Tensor) -> torch.Tensor:
         if word_histogram_fn is not None:
-            return word_histogram_fn(shipped, s_local, num_weeks, p)
+            return word_histogram_fn(shipped, s_local, num_weeks, p,
+                                     group.first)
         site, week, mark, ok = unpack_site_week_mark(shipped)
         ok = ok & (site % p == node)
         rebased = EventLog(site_id=site // p,
@@ -208,20 +223,21 @@ def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
                            valid=ok)
         return site_week_histogram(rebased, s_local, num_weeks)
 
-    hist = torch.zeros(p, s_local, num_weeks, 2, dtype=torch.int32,
+    hist = torch.zeros(rows, s_local, num_weeks, 2, dtype=torch.int32,
                        device=dev)
-    sent = torch.zeros(p, dtype=torch.int32, device=dev)
-    deferred = torch.zeros(p, dtype=torch.int32, device=dev)
-    global_left = int(starts[:, p].sum())              # valid records
+    sent = torch.zeros(rows, dtype=torch.int32, device=dev)
+    deferred = torch.zeros(rows, dtype=torch.int32, device=dev)
+    global_left = nodes.global_count(starts[:, p], group)   # valid records
     rounds = 0
     while global_left > 0 and rounds < max_rounds:
-        shipped, live = ship_round(words_sorted, starts, rounds, capacity)
+        shipped, live = ship_round(words_sorted, starts, rounds, capacity,
+                                   group)
         left = (counts - (rounds + 1) * capacity).clamp(min=0).sum(
             dim=-1, dtype=torch.int32)
         hist += reduce_words(shipped)
         sent += live.sum(dim=(1, 2), dtype=torch.int32)
         deferred += left
-        global_left = int(left.sum())
+        global_left = nodes.global_count(left, group)
         rounds += 1
 
     overflow = (counts - rounds * capacity).clamp(min=0).sum(
@@ -231,23 +247,24 @@ def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
     stats = ShuffleStats(
         sent=sent, overflow=overflow, capacity=capacity, rounds=rounds,
         residual=deferred,
-        bytes_exchanged=torch.full((p,), bytes_node, dtype=torch.int32,
+        bytes_exchanged=torch.full((rows,), bytes_node, dtype=torch.int32,
                                    device=dev))
     return hist, stats
 
 
 def _pack_buckets(log: EventLog, num_partitions: int, capacity: int):
     """One round's mapper side of the columns exchange (JAX
-    ``_pack_buckets``) for every node of a ``[P, n]`` log.
+    ``_pack_buckets``) for every node of a ``[P_local, n]`` log, to the
+    ``num_partitions`` destinations.
 
     The records are ordered stably by destination ``site % P``, invalid
     rows going to the overflow row P (the counting sort K1 + K2 on the
     card, over the row indices). The first ``capacity`` records of each
-    destination fill ``[P, P, C]`` buckets of the four columns plus
+    destination fill ``[P_local, P, C]`` buckets of the four columns plus
     validity; empty slots hold site -1 and are invalid. The records beyond
     ``capacity`` stay in ``residual``: the ordered columns, same shape,
     whose ``valid`` marks exactly those records. Returns ``(buckets,
-    residual, sent [P], overflow [P])``.
+    residual, sent [P_local], overflow [P_local])``.
     """
     rows, n = log.site_id.shape
     dev = log.site_id.device
@@ -285,20 +302,23 @@ def _pack_buckets(log: EventLog, num_partitions: int, capacity: int):
 
 
 def ship_columns_round(pending: EventLog, capacity: int, s_local: int,
-                       num_weeks: int, histogram_fn):
+                       num_weeks: int, histogram_fn,
+                       group: Optional[nodes.NodeGroup] = None):
     """One round of the columns exchange: pack, ``all_to_all`` the five
     bucket columns, and reduce what each node received (rebased to
     ``site // P``, kept where ``site % P`` is the node) with
-    ``histogram_fn``. Returns ``(owned increment [P, S/P, W, 2], residual
-    log, sent [P], overflow [P])``."""
-    p = pending.site_id.shape[0]
+    ``histogram_fn``. Returns ``(owned increment [P_local, S/P, W, 2],
+    residual log, sent [P_local], overflow [P_local])``."""
+    rows = pending.site_id.shape[0]
+    group = nodes.group_of_rows(group, rows)
+    p = group.nodes
     buckets, residual, sent, overflow = _pack_buckets(pending, p, capacity)
-    site, entity, ts, mark, vmask = (nodes.all_to_all(b).reshape(p, -1)
-                                     for b in buckets)
+    site, entity, ts, mark, vmask = (
+        nodes.all_to_all(b, group).reshape(rows, -1) for b in buckets)
     del buckets
-    node = torch.arange(p, device=site.device).unsqueeze(1)
     rebased = EventLog(site_id=site // p, entity_id=entity, timestamp=ts,
-                       mark=mark, valid=vmask & (site % p == node))
+                       mark=mark,
+                       valid=vmask & (site % p == group.node_ids(site.device)))
     del site, entity, ts, mark, vmask
     return (histogram_fn(rebased, s_local, num_weeks), residual, sent,
             overflow)
@@ -307,30 +327,33 @@ def ship_columns_round(pending: EventLog, capacity: int, s_local: int,
 def columns_shuffle_histogram(log: EventLog, *, num_sites: int,
                               num_weeks: int, capacity: int,
                               max_rounds: int,
-                              histogram_fn=site_week_histogram):
+                              histogram_fn=site_week_histogram,
+                              group: Optional[nodes.NodeGroup] = None):
     """The 4-column exchange (JAX ``_unpacked_shuffle_histogram``): rounds
     of ``ship_columns_round`` over the residual log until no record is
-    left anywhere or ``max_rounds`` ran. Returns the owned ``[P, S/P, W,
-    2]`` histograms and per-node ``ShuffleStats``."""
-    p = log.site_id.shape[0]
+    left anywhere or ``max_rounds`` ran. Returns the owned ``[P_local, S/P,
+    W, 2]`` histograms and per-node ``ShuffleStats``."""
+    rows = log.site_id.shape[0]
+    group = nodes.group_of_rows(group, rows)
+    p = group.nodes
     dev = log.site_id.device
     s_local = num_sites // p
     pending = EventLog(site_id=log.site_id, entity_id=log.entity_id,
                        timestamp=log.timestamp, mark=log.mark,
                        valid=log.valid_mask())
-    hist = torch.zeros(p, s_local, num_weeks, 2, dtype=torch.int32,
+    hist = torch.zeros(rows, s_local, num_weeks, 2, dtype=torch.int32,
                        device=dev)
-    sent = torch.zeros(p, dtype=torch.int32, device=dev)
-    deferred = torch.zeros(p, dtype=torch.int32, device=dev)
-    global_left = int(pending.valid.sum())
+    sent = torch.zeros(rows, dtype=torch.int32, device=dev)
+    deferred = torch.zeros(rows, dtype=torch.int32, device=dev)
+    global_left = nodes.global_count(pending.valid, group)
     rounds = 0
     while global_left > 0 and rounds < max_rounds:
         inc, pending, sent_r, left = ship_columns_round(
-            pending, capacity, s_local, num_weeks, histogram_fn)
+            pending, capacity, s_local, num_weeks, histogram_fn, group)
         hist += inc
         sent += sent_r
         deferred += left
-        global_left = int(left.sum())
+        global_left = nodes.global_count(left, group)
         rounds += 1
 
     bytes_node = _bytes_exchanged(rounds, p, capacity, max_rounds,
@@ -338,7 +361,7 @@ def columns_shuffle_histogram(log: EventLog, *, num_sites: int,
     stats = ShuffleStats(
         sent=sent, overflow=pending.valid.sum(-1, dtype=torch.int32),
         capacity=capacity, rounds=rounds, residual=deferred,
-        bytes_exchanged=torch.full((p,), bytes_node, dtype=torch.int32,
+        bytes_exchanged=torch.full((rows,), bytes_node, dtype=torch.int32,
                                    device=dev))
     return hist, stats
 
@@ -349,19 +372,24 @@ def mapreduce_histogram(log: EventLog, num_sites: int,
                         max_rounds: Optional[int] = None,
                         impl: str = "auto",
                         histogram_fn=site_week_histogram,
-                        word_histogram_fn=None):
-    """Multi-round lossless shuffle + reduce over a ``[P, n]`` log.
+                        word_histogram_fn=None,
+                        group: Optional[nodes.NodeGroup] = None):
+    """Multi-round lossless shuffle + reduce over a ``[P_local, n]`` log
+    (every node of ``group`` holds ``n`` records).
 
-    Returns ``(owned [P, num_sites // P, W, 2], per-node ShuffleStats)``;
-    ``num_sites % P == 0`` is required (the runner pads). ``max_rounds``
-    ``None`` uses the provable bound ``ceil(n / capacity)``; a smaller cap
-    may stop with ``overflow > 0``, which callers must check.
-    ``histogram_fn(log, s_local, num_weeks)`` reduces what the columns
-    exchange delivers. ``word_histogram_fn(words [P, L], s_local,
-    num_weeks, P)``, when given, reduces the shipped words of the word
-    exchanges directly (the fused kernel K3).
+    Returns ``(owned [P_local, num_sites // P, W, 2], per-node
+    ShuffleStats)``; ``num_sites % P == 0`` is required (the runner pads).
+    ``max_rounds`` ``None`` uses the provable bound ``ceil(n /
+    capacity)``; a smaller cap may stop with ``overflow > 0``, which
+    callers must check. ``histogram_fn(log, s_local, num_weeks)`` reduces
+    what the columns exchange delivers. ``word_histogram_fn(words
+    [P_local, L], s_local, num_weeks, P, first_node)``, when given,
+    reduces the shipped words of the word exchanges directly (the fused
+    kernel K3).
     """
-    p, n = log.site_id.shape
+    rows, n = log.site_id.shape
+    group = nodes.group_of_rows(group, rows)
+    p = group.nodes
     if num_sites % p:
         raise ValueError(f"num_sites ({num_sites}) must divide by the node "
                          f"count ({p}); pad it")
@@ -374,43 +402,49 @@ def mapreduce_histogram(log: EventLog, num_sites: int,
     if impl == "columns":
         return columns_shuffle_histogram(
             log, num_sites=num_sites, num_weeks=num_weeks, capacity=capacity,
-            max_rounds=max_rounds, histogram_fn=histogram_fn)
-    words_sorted, starts = order_words(log, num_weeks, impl)
+            max_rounds=max_rounds, histogram_fn=histogram_fn, group=group)
+    words_sorted, starts = order_words(log, num_weeks, impl, group)
     return exchange_and_reduce(
         words_sorted, starts, num_sites=num_sites, num_weeks=num_weeks,
         capacity=capacity, max_rounds=max_rounds,
-        word_histogram_fn=word_histogram_fn)
+        word_histogram_fn=word_histogram_fn, group=group)
 
 
 def mapreduce_combiner_histogram(log: EventLog, num_sites: int,
                                  num_weeks: int = WEEKS_PER_YEAR,
-                                 histogram_fn=site_week_histogram
+                                 histogram_fn=site_week_histogram,
+                                 group: Optional[nodes.NodeGroup] = None
                                  ) -> torch.Tensor:
     """MapReduce with a combiner (JAX ``mapreduce_combiner_histogram``):
     each node pre-reduces its records into a local ``[S, W, 2]``
     histogram, so the shuffle moves histogram blocks, not records.
 
-    Returns the owned strided blocks ``[P, num_sites // P, W, 2]`` (row i
-    of node d is site ``i * P + d``), equal to ``mapreduce_histogram``'s.
+    Returns the owned strided blocks ``[P_local, num_sites // P, W, 2]``
+    (row i of node d is site ``i * P + d``), equal to
+    ``mapreduce_histogram``'s.
     """
-    p = log.site_id.shape[0]
+    rows = log.site_id.shape[0]
+    group = nodes.group_of_rows(group, rows)
+    p = group.nodes
     if num_sites % p:
         raise ValueError(f"num_sites ({num_sites}) must divide by the node "
                          f"count ({p}); pad it")
     s_local = num_sites // p
-    local = histogram_fn(log, num_sites, num_weeks)       # [P, S, W, 2]
+    local = histogram_fn(log, num_sites, num_weeks)   # [P_local, S, W, 2]
     # regroup so destination d's strided sites (j % P == d) form a block:
-    # [P_src, P_dst, S/P, W, 2], block (d, i) = site i * P + d
-    blocks = local.reshape(p, s_local, p, num_weeks, 2).transpose(1, 2)
+    # [P_local (src), P_dst, S/P, W, 2], block (d, i) = site i * P + d
+    blocks = local.reshape(rows, s_local, p, num_weeks, 2).transpose(1, 2)
     # block d of every node -> node d, then the sum over the senders
-    return nodes.psum(nodes.all_to_all(blocks), dim=1)
+    return nodes.psum(nodes.all_to_all(blocks, group), dim=1)
 
 
-def shuffle_stats(stats: ShuffleStats) -> ShuffleStats:
-    """Global accounting: int32 sums over the nodes (``capacity`` and
+def shuffle_stats(stats: ShuffleStats,
+                  group: Optional[nodes.NodeGroup] = None) -> ShuffleStats:
+    """Global accounting: int32 sums over all nodes (``capacity`` and
     ``rounds`` are node-uniform and pass through)."""
     return ShuffleStats(
-        sent=nodes.psum(stats.sent), overflow=nodes.psum(stats.overflow),
+        sent=nodes.psum(stats.sent, group=group),
+        overflow=nodes.psum(stats.overflow, group=group),
         capacity=stats.capacity, rounds=stats.rounds,
-        residual=nodes.psum(stats.residual),
-        bytes_exchanged=nodes.psum(stats.bytes_exchanged))
+        residual=nodes.psum(stats.residual, group=group),
+        bytes_exchanged=nodes.psum(stats.bytes_exchanged, group=group))

@@ -8,6 +8,8 @@ partitioned and nothing is re-broadcast.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.common import nodes
@@ -17,11 +19,14 @@ from repro_torch.core.spm import site_week_histogram
 
 def sphere_histogram(log: EventLog, num_sites: int,
                      num_weeks: int = WEEKS_PER_YEAR,
-                     histogram_fn=site_week_histogram) -> torch.Tensor:
-    """Owned-block histograms ``[P, num_sites // P, num_weeks, 2]`` of a
-    ``[P, n]`` log: node d owns sites ``[d * S/P, (d+1) * S/P)``.
-    ``num_sites`` must divide by P (the runner pads)."""
-    return nodes.psum_scatter(histogram_fn(log, num_sites, num_weeks))
+                     histogram_fn=site_week_histogram,
+                     group: Optional[nodes.NodeGroup] = None
+                     ) -> torch.Tensor:
+    """Owned-block histograms ``[P_local, num_sites // P, num_weeks, 2]``
+    of a ``[P_local, n]`` log: node d owns sites ``[d * S/P, (d+1) *
+    S/P)``. ``num_sites`` must divide by P (the runner pads)."""
+    return nodes.psum_scatter(histogram_fn(log, num_sites, num_weeks),
+                              group)
 
 
 def owned_site_range(node: int, parts: int,

@@ -8,8 +8,9 @@ multi-round record shuffle, whose round loop reads a count back to the
 host every round), then chunk k+1. This module drives the same per-chunk
 steps from the host, double-buffered:
 
-- ``_chunk(k)``  — every node's chunk ``d * cpd + k`` as one ``[P, C]``
-  step (``generate_chunks``);
+- ``_chunk(k)``  — every local node's chunk ``d * cpd + k`` as one
+  ``[P_local, C]`` step (``generate_chunks``; in a gang of processes, the
+  nodes of the runner's ``group``, whose collectives run over the gang);
 - ``fold``       — one :func:`~repro_torch.core.streaming.fold_chunk`
   step (the per-chunk exchange + reduce), the carry updated in place;
 - ``snapshot``   — :func:`~repro_torch.core.streaming.snapshot`.
@@ -37,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.common.nodes import resolve_device
+from repro_torch.common.nodes import NodeGroup, group_of, resolve_device
 from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
 from repro_torch.core.runner import (
     _finalize,
@@ -60,13 +61,15 @@ class OverlapStreamingRunner:
     often as needed (the bench loop): the generation stream is made once.
     ``seed`` comes from ``make_seed_streaming`` at ``chunk_records``;
     ``num_chunks`` is the global chunk count and must divide over the
-    nodes. The runner works on the card unless ``device="cpu"`` is given.
+    nodes. The runner works on the card unless ``device="cpu"`` is given,
+    over the nodes of ``group`` (default: all ``nodes``).
     """
 
     def __init__(self, seed, cfg, *, nodes: int, num_chunks: int,
                  chunk_records: int, num_sites: Optional[int] = None,
                  backend: str = "streams", num_weeks: int = WEEKS_PER_YEAR,
-                 plan: Optional[ExchangePlan] = None, device=None):
+                 plan: Optional[ExchangePlan] = None, device=None,
+                 group: Optional[NodeGroup] = None):
         if backend not in STREAM_BACKENDS:
             raise ValueError(
                 f"unknown streaming backend {backend!r};"
@@ -79,6 +82,7 @@ class OverlapStreamingRunner:
         self.device = resolve_device(device)
         self.seed, self.cfg = seed.to(self.device), cfg
         self.nodes, self.backend, self.num_weeks = nodes, backend, num_weeks
+        self.group = group_of(group, nodes)
         self.chunk_records = chunk_records
         self.num_sites = num_sites or cfg.num_sites
         self.cpd = num_chunks // nodes
@@ -87,16 +91,18 @@ class OverlapStreamingRunner:
 
     # ---------------------------------------------------------------- steps
     def _chunk(self, k: int):
-        """Step k's ``[P, C]`` chunk: node d's chunk ``d * cpd + k``."""
+        """Step k's ``[P_local, C]`` chunk: local node d's chunk ``d * cpd
+        + k``."""
+        first = self.group.first
         return generate_chunks(
             self.seed, self.cfg,
-            [d * self.cpd + k for d in range(self.nodes)],
+            [d * self.cpd + k for d in range(first, first + self.group.local)],
             self.chunk_records)
 
     def _fold(self, state, chunk):
         return fold_chunk(state, chunk, backend=self.backend,
                           s_pad=self.s_pad, num_weeks=self.num_weeks,
-                          plan=self.plan)
+                          plan=self.plan, group=self.group)
 
     def _generate_on(self, stream, k: int, reader):
         """Enqueue step k's generation on ``stream``; return the chunk and
@@ -153,14 +159,14 @@ class OverlapStreamingRunner:
         order, so the results are bit-identical.
         """
         state = state_init(self.backend, self.nodes, self.s_pad,
-                           self.num_weeks, self.device)
+                           self.num_weeks, self.device, self.group)
         if self.device.type == "cuda":
             state = self._run_on_streams(state, overlap)
         else:
             for k in range(self.cpd):
                 state = self._fold(state, self._chunk(k))
         return snapshot(state, backend=self.backend, s_pad=self.s_pad,
-                        num_weeks=self.num_weeks)
+                        num_weeks=self.num_weeks, group=self.group)
 
     def run_result(self, statistic: str = "B", *, overlap: bool = True):
         """``run`` + finalize: ``(SpmResult, stats)`` over the unpadded

@@ -19,9 +19,10 @@ from repro_torch.kernels.segment_hist import (
 )
 
 
-def _kernel_word_fn(words, s_local, num_weeks, p):
+def _kernel_word_fn(words, s_local, num_weeks, p, first_node=0):
     return segment_hist_packed_words(words, num_sites_local=s_local,
-                                     num_partitions=p, num_weeks=num_weeks)
+                                     num_partitions=p, num_weeks=num_weeks,
+                                     first_node=first_node)
 
 
 def resolve_histogram_fns(plan: ExchangePlan):
@@ -29,8 +30,9 @@ def resolve_histogram_fns(plan: ExchangePlan):
 
     - ``histogram_fn(log, num_sites, num_weeks)``: the local combine of
       every backend and the columns exchange's reducer;
-    - ``word_histogram_fn(words, s_local, num_weeks, P)``: the reducer of
-      the word exchanges, or ``None`` to unpack and use ``index_add_``.
+    - ``word_histogram_fn(words, s_local, num_weeks, P, first_node)``: the
+      reducer of the word exchanges (row r of ``words`` is node
+      ``first_node + r``), or ``None`` to unpack and use ``index_add_``.
 
     ``"kernel"`` gives K4 (``segment_hist_eventlog``) and the fused word
     reducer K3; ``"segment_sum"`` gives ``spm.site_week_histogram``

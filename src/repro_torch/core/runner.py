@@ -16,6 +16,16 @@ partitioned). The JAX mesh becomes the ``nodes`` count: a flat log of
 The drivers run on the card unless ``device="cpu"`` is passed; with no
 CUDA device and no ``device="cpu"`` they raise. ``malstone_single_device``
 is the plain one-device oracle they are checked against.
+
+``malstone_run``, ``malstone_run_partitioned`` and
+``malstone_run_streaming`` take a ``group`` (a
+``repro_torch.common.nodes.NodeGroup``, the counterpart of a JAX mesh that
+spans processes): in a gang each process runs the dataflow of its own
+``nodes / N`` nodes, the collectives run over the gang, and every process
+finalizes the full histogram (JAX's rho is replicated on every process
+too). ``nodes`` stays the global P and a log source stays the global flat
+log, of which a process keeps its own nodes' rows. The default is one
+process with every node.
 """
 
 from __future__ import annotations
@@ -83,64 +93,71 @@ def _finalize(hist: torch.Tensor, statistic: str) -> SpmResult:
 
 
 def _local_backend_histogram(log: EventLog, backend: str, s_pad: int,
-                             num_weeks: int, plan: ExchangePlan):
-    """Every node's backend dataflow over a ``[P, n]`` log -> (the full
-    ``[s_pad, W, 2]`` histogram, global ShuffleStats for ``mapreduce``,
-    else ``None``)."""
+                             num_weeks: int, plan: ExchangePlan,
+                             group: nodes_lib.NodeGroup):
+    """The backend dataflow of the group's nodes over their ``[P_local,
+    n]`` log -> (the full ``[s_pad, W, 2]`` histogram, global ShuffleStats
+    for ``mapreduce``, else ``None``), the same on every process."""
     hist_fn, word_fn = resolve_histogram_fns(plan)
     if backend == "streams":
-        return streams_histogram(log, s_pad, num_weeks,
-                                 histogram_fn=hist_fn), None
+        return streams_histogram(log, s_pad, num_weeks, histogram_fn=hist_fn,
+                                 group=group), None
     if backend == "sphere":
         # owned contiguous blocks, gathered back to the full histogram
         return nodes_lib.all_gather(sphere_histogram(
-            log, s_pad, num_weeks, histogram_fn=hist_fn)), None
+            log, s_pad, num_weeks, histogram_fn=hist_fn, group=group),
+            group), None
     stats = None
     if backend == "mapreduce":
         owned, stats = mapreduce_histogram(
             log, s_pad, num_weeks, capacity_factor=plan.capacity_factor,
             max_rounds=plan.max_shuffle_rounds, impl=plan.impl,
-            histogram_fn=hist_fn, word_histogram_fn=word_fn)
-        stats = shuffle_stats(stats)
+            histogram_fn=hist_fn, word_histogram_fn=word_fn, group=group)
+        stats = shuffle_stats(stats, group)
     elif backend == "mapreduce_combiner":
         owned = mapreduce_combiner_histogram(log, s_pad, num_weeks,
-                                             histogram_fn=hist_fn)
+                                             histogram_fn=hist_fn,
+                                             group=group)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     # owned rows are strided (site = row * P + d): gather + unstride
-    return nodes_lib.all_gather_unstride(owned), stats
+    return nodes_lib.all_gather_unstride(owned, group), stats
 
 
 def _run_nodes(log: EventLog, num_sites: int, statistic: str, backend: str,
                num_weeks: int, plan: Optional[ExchangePlan],
-               return_shuffle_stats: bool):
+               return_shuffle_stats: bool,
+               group: Optional[nodes_lib.NodeGroup] = None):
     plan = plan or ExchangePlan()
-    parts = log.site_id.shape[0]
-    s_pad = _pad_sites(num_sites, parts)
+    group = group or nodes_lib.NodeGroup(log.site_id.shape[0])
+    s_pad = _pad_sites(num_sites, group.nodes)
     hist, stats = _local_backend_histogram(log, backend, s_pad, num_weeks,
-                                           plan)
+                                           plan, group)
     _raise_if_exhausted(stats)
     result = _finalize(hist[:num_sites], statistic)
     return (result, stats) if return_shuffle_stats else result
 
 
-def _node_log(log: EventLog, nodes: int, device) -> EventLog:
-    """A flat node-major log as ``[nodes, n]`` columns on ``device``."""
-    if log.site_id.dim() != 1 or log.num_records % nodes:
+def _node_log(log: EventLog, group: nodes_lib.NodeGroup,
+              device) -> EventLog:
+    """The group's ``[P_local, n]`` rows of a flat node-major log of
+    ``group.nodes`` nodes, on ``device``."""
+    if log.site_id.dim() != 1 or log.num_records % group.nodes:
         raise ValueError(
             f"the drivers take a flat log whose record count divides by "
-            f"nodes={nodes}; got shape {tuple(log.site_id.shape)} (pad "
-            f"with pad_log_to)")
-    return log.map(lambda c: torch.as_tensor(c, device=device)
-                   .reshape(nodes, -1))
+            f"nodes={group.nodes}; got shape {tuple(log.site_id.shape)} "
+            f"(pad with pad_log_to)")
+    return log.map(lambda c: torch.as_tensor(group.rows(c), device=device))
 
 
 def malstone_run(log: EventLog, num_sites: int, *, nodes: int,
                  statistic: str = "B", backend: str = "mapreduce",
                  num_weeks: int = WEEKS_PER_YEAR,
                  plan: Optional[ExchangePlan] = None, device=None,
-                 return_shuffle_stats: bool = False):
-    """Run MalStone over a flat node-major log split over ``nodes`` nodes.
+                 return_shuffle_stats: bool = False,
+                 group: Optional[nodes_lib.NodeGroup] = None):
+    """Run MalStone over a flat node-major log split over ``nodes`` nodes
+    (of which ``group``, default all of them, runs here).
 
     Returns the full-site ``SpmResult`` (``(SpmResult, ShuffleStats)``
     with ``return_shuffle_stats=True``; the stats are ``None`` for the
@@ -150,8 +167,9 @@ def malstone_run(log: EventLog, num_sites: int, *, nodes: int,
     """
     _check_backend(backend)
     device = nodes_lib.resolve_device(device)
-    return _run_nodes(_node_log(log, nodes, device), num_sites, statistic,
-                      backend, num_weeks, plan, return_shuffle_stats)
+    group = nodes_lib.group_of(group, nodes)
+    return _run_nodes(_node_log(log, group, device), num_sites, statistic,
+                      backend, num_weeks, plan, return_shuffle_stats, group)
 
 
 def malstone_run_partitioned(log: EventLog, num_sites: int, *, nodes: int,
@@ -160,31 +178,36 @@ def malstone_run_partitioned(log: EventLog, num_sites: int, *, nodes: int,
                              num_weeks: int = WEEKS_PER_YEAR,
                              plan: Optional[ExchangePlan] = None,
                              device=None,
-                             return_shuffle_stats: bool = False):
+                             return_shuffle_stats: bool = False,
+                             group: Optional[nodes_lib.NodeGroup] = None):
     """``malstone_run`` with the result left partitioned by site block:
-    every array of the ``SpmResult`` has a leading ``[nodes, s_pad /
+    every array of the ``SpmResult`` has a leading ``[P_local, s_pad /
     nodes]`` axis, node d owning sites ``[d * s_pad/P, (d+1) * s_pad/P)``
-    of the padded site range ``s_pad = ceil(num_sites / P) * P``. The
-    blocks joined in node order give JAX's ``malstone_run_partitioned``
-    result, padding included.
+    of the padded site range ``s_pad = ceil(num_sites / P) * P`` (a
+    process of a gang holds its own nodes' blocks). The blocks joined in
+    node order give JAX's ``malstone_run_partitioned`` result, padding
+    included.
 
     ``sphere`` finalizes its owned blocks and never makes the full-site
     histogram; the other backends cut their full histogram into blocks.
     """
     _check_backend(backend)
     device = nodes_lib.resolve_device(device)
-    log = _node_log(log, nodes, device)
+    group = nodes_lib.group_of(group, nodes)
+    log = _node_log(log, group, device)
     plan = plan or ExchangePlan()
     s_pad = _pad_sites(num_sites, nodes)
     if backend == "sphere":
         hist_fn, _ = resolve_histogram_fns(plan)
-        owned = sphere_histogram(log, s_pad, num_weeks, histogram_fn=hist_fn)
+        owned = sphere_histogram(log, s_pad, num_weeks, histogram_fn=hist_fn,
+                                 group=group)
         stats = None
     else:
         hist, stats = _local_backend_histogram(log, backend, s_pad,
-                                               num_weeks, plan)
+                                               num_weeks, plan, group)
         _raise_if_exhausted(stats)
-        owned = hist.reshape(nodes, s_pad // nodes, *hist.shape[1:])
+        owned = group.rows(hist).reshape(group.local, s_pad // nodes,
+                                         *hist.shape[1:])
     result = _finalize(owned, statistic)
     return (result, stats) if return_shuffle_stats else result
 
@@ -258,11 +281,13 @@ def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
                            num_weeks: int = WEEKS_PER_YEAR,
                            plan: Optional[ExchangePlan] = None, device=None,
                            return_shuffle_stats: bool = False,
-                           overlap: Optional[bool] = None):
+                           overlap: Optional[bool] = None,
+                           group: Optional[nodes_lib.NodeGroup] = None):
     """Streaming chunked MalStone (``core.streaming``): the histogram equals
     ``malstone_run``'s for every backend; mapreduce's ShuffleStats
     accumulate over the per-chunk shuffles, ``rounds`` being the most any
-    chunk needed.
+    chunk needed. ``group`` (default: every node here) picks the nodes
+    this process folds.
 
     - A ``SeedInfo`` from ``make_seed_streaming`` (needs ``cfg`` and
       ``num_chunks``, which must divide by ``nodes``): every step
@@ -294,6 +319,7 @@ def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
     if chunk_records < 1:
         raise ValueError(f"chunk_records must be >= 1, got {chunk_records}")
     device = nodes_lib.resolve_device(device)
+    group = nodes_lib.group_of(group, nodes)
     plan = plan or ExchangePlan()
     s_pad = _pad_sites(num_sites, nodes)
     if isinstance(seed_or_log, SeedInfo):
@@ -309,21 +335,21 @@ def malstone_run_streaming(seed_or_log, num_sites: int, *, nodes: int,
                 seed_or_log, cfg, nodes=nodes, num_chunks=num_chunks,
                 chunk_records=chunk_records, num_sites=num_sites,
                 backend=backend, num_weeks=num_weeks, plan=plan,
-                device=device)
+                device=device, group=group)
             result, stats = runner.run_result(statistic, overlap=overlap)
             return (result, stats) if return_shuffle_stats else result
         hist, stats = streaming_histogram_generate(
             seed_or_log.to(device), cfg, s_pad, parts=nodes,
             chunks_per_node=num_chunks // nodes, chunk_records=chunk_records,
-            num_weeks=num_weeks, backend=backend, plan=plan)
+            num_weeks=num_weeks, backend=backend, plan=plan, group=group)
     else:
         log = seed_or_log
         per_node = -(-log.num_records // (nodes * chunk_records)) \
             * chunk_records
-        log = _node_log(pad_log_to(log, per_node * nodes), nodes, device)
+        log = _node_log(pad_log_to(log, per_node * nodes), group, device)
         hist, stats = streaming_histogram_from_log(
             log, s_pad, chunk_records, num_weeks=num_weeks, backend=backend,
-            plan=plan)
+            plan=plan, group=group)
     _raise_if_exhausted(stats)
     result = _finalize(hist[:num_sites], statistic)
     return (result, stats) if return_shuffle_stats else result

@@ -16,6 +16,13 @@ dataflow:
 - ``mapreduce_combiner``: the combiner's histogram-block exchange of the
   chunk, into the same owned blocks.
 
+Every function takes a ``group`` (``repro_torch.common.nodes.NodeGroup``;
+default: one process with every node). In a gang a process folds the
+chunks of its own nodes only, its carry has their ``P_local`` rows, and the
+collectives (the mapreduce exchange, the final ``psum``, ``psum_scatter``
+and gathers) run over the whole gang, so every process ends with the same
+full-site histogram and global ``ShuffleStats``.
+
 The site x week histogram is a commutative monoid, so any chunking gives
 the one-shot histogram exactly. The JAX ``lax.scan`` is a Python loop over
 chunks here. The carry keeps the JAX package's *global* layout (every leaf
@@ -77,24 +84,26 @@ def merge_stats(acc: ShuffleStats, chunk: ShuffleStats) -> ShuffleStats:
 
 
 def carry_init(backend: str, parts: int, s_pad: int, num_weeks: int,
-               device) -> object:
-    """Zero carry on ``device``: ``[P, s_pad, W, 2]`` for streams and
-    sphere, the owned ``[P, s_pad/P, W, 2]`` blocks for the combiner, and
-    for mapreduce those blocks plus per-node ``[P]`` ShuffleStats (every
+               device, group: Optional[nodes_lib.NodeGroup] = None) -> object:
+    """Zero carry on ``device`` for the ``P_local`` nodes of ``group``
+    (of ``parts`` = P): ``[P_local, s_pad, W, 2]`` for streams and sphere,
+    the owned ``[P_local, s_pad/P, W, 2]`` blocks for the combiner, and for
+    mapreduce those blocks plus per-node ``[P_local]`` ShuffleStats (every
     field an int32 tensor)."""
     _check_backend(backend)
     if s_pad % parts:
         raise ValueError(f"s_pad ({s_pad}) must divide by the node count "
                          f"({parts})")
+    rows = nodes_lib.group_of(group, parts).local
 
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)
 
     if backend in ("streams", "sphere"):
-        return z(parts, s_pad, num_weeks, 2)
-    owned = z(parts, s_pad // parts, num_weeks, 2)
+        return z(rows, s_pad, num_weeks, 2)
+    owned = z(rows, s_pad // parts, num_weeks, 2)
     if backend == "mapreduce":
-        return (owned, _zero_stats(parts, device))
+        return (owned, _zero_stats(rows, device))
     return owned
 
 
@@ -105,8 +114,9 @@ def carry_zeros_host(backend: str, parts: int, s_pad: int,
 
 
 def _accumulate_chunk(carry, chunk: EventLog, backend: str, s_pad: int,
-                      num_weeks: int, plan: ExchangePlan):
-    """Fold one ``[P, C]`` chunk into the carry with the backend's
+                      num_weeks: int, plan: ExchangePlan,
+                      group: Optional[nodes_lib.NodeGroup] = None):
+    """Fold one ``[P_local, C]`` chunk into the carry with the backend's
     dataflow (in place)."""
     hist_fn, word_fn = resolve_histogram_fns(plan)
     if backend in ("streams", "sphere"):
@@ -117,12 +127,13 @@ def _accumulate_chunk(carry, chunk: EventLog, backend: str, s_pad: int,
         inc, chunk_stats = mapreduce_histogram(
             chunk, s_pad, num_weeks, capacity_factor=plan.capacity_factor,
             max_rounds=plan.max_shuffle_rounds, impl=plan.impl,
-            histogram_fn=hist_fn, word_histogram_fn=word_fn)
+            histogram_fn=hist_fn, word_histogram_fn=word_fn, group=group)
         owned += inc
         return (owned, merge_stats(stats, chunk_stats))
     if backend == "mapreduce_combiner":
         carry += mapreduce_combiner_histogram(chunk, s_pad, num_weeks,
-                                              histogram_fn=hist_fn)
+                                              histogram_fn=hist_fn,
+                                              group=group)
         return carry
     raise ValueError(f"unknown streaming backend {backend!r}")
 
@@ -131,11 +142,12 @@ def scan_chunk_range(carry, seed, cfg, first_chunks: Sequence[int],
                      num_chunks: int, chunk_records: int, *, s_pad: int,
                      num_weeks: int = WEEKS_PER_YEAR,
                      backend: str = "streams",
-                     plan: Optional[ExchangePlan] = None):
+                     plan: Optional[ExchangePlan] = None,
+                     group: Optional[nodes_lib.NodeGroup] = None):
     """Regenerate and fold ``num_chunks`` steps: step i generates chunk
-    ``first_chunks[d] + i`` on every node d (``generate_chunks``) and folds
-    it. Any split of a chunk range into consecutive calls gives the same
-    carry."""
+    ``first_chunks[r] + i`` (global chunk ids) for every local node r
+    (``generate_chunks``) and folds it. Any split of a chunk range into
+    consecutive calls gives the same carry."""
     from repro_torch.malgen.generator import generate_chunks
 
     plan = plan or ExchangePlan()
@@ -143,30 +155,35 @@ def scan_chunk_range(carry, seed, cfg, first_chunks: Sequence[int],
         chunk = generate_chunks(seed, cfg, [f + i for f in first_chunks],
                                 chunk_records)
         carry = _accumulate_chunk(carry, chunk, backend, s_pad, num_weeks,
-                                  plan)
+                                  plan, group)
     return carry
 
 
-def post_scan_collective(carry, backend: str, s_pad: int, num_weeks: int):
+def post_scan_collective(carry, backend: str, s_pad: int, num_weeks: int,
+                         group: Optional[nodes_lib.NodeGroup] = None):
     """The carry -> (the full-site ``[s_pad, W, 2]`` histogram, the global
     ShuffleStats for mapreduce, else ``None``); does not change the
     carry."""
     if backend == "streams":
-        return nodes_lib.psum(carry), None
+        return nodes_lib.psum(carry, group=group), None
     if backend == "sphere":
-        return nodes_lib.all_gather(nodes_lib.psum_scatter(carry)), None
+        return nodes_lib.all_gather(nodes_lib.psum_scatter(carry, group),
+                                    group), None
     stats = None
     if backend == "mapreduce":
         carry, per_node = carry
+        # capacity and rounds are the same on every node (the round loop's
+        # stop test is global)
         stats = ShuffleStats(
-            sent=nodes_lib.psum(per_node.sent),
-            overflow=nodes_lib.psum(per_node.overflow),
+            sent=nodes_lib.psum(per_node.sent, group=group),
+            overflow=nodes_lib.psum(per_node.overflow, group=group),
             capacity=int(per_node.capacity[0]),
             rounds=int(per_node.rounds[0]),
-            residual=nodes_lib.psum(per_node.residual),
-            bytes_exchanged=nodes_lib.psum(per_node.bytes_exchanged))
+            residual=nodes_lib.psum(per_node.residual, group=group),
+            bytes_exchanged=nodes_lib.psum(per_node.bytes_exchanged,
+                                           group=group))
     # owned rows are strided (site = row * P + d): gather + unstride
-    return nodes_lib.all_gather_unstride(carry), stats
+    return nodes_lib.all_gather_unstride(carry, group), stats
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +201,10 @@ class HistogramState(NamedTuple):
 
 
 def state_init(backend: str, parts: int, s_pad: int, num_weeks: int,
-               device) -> HistogramState:
+               device, group: Optional[nodes_lib.NodeGroup] = None
+               ) -> HistogramState:
     return HistogramState(carry_init(backend, parts, s_pad, num_weeks,
-                                     device), 0)
+                                     device, group), 0)
 
 
 def state_zeros_host(backend: str, parts: int, s_pad: int,
@@ -196,13 +214,14 @@ def state_zeros_host(backend: str, parts: int, s_pad: int,
 
 def fold_chunk(state: HistogramState, chunk: EventLog, *, backend: str,
                s_pad: int, num_weeks: int = WEEKS_PER_YEAR,
-               plan: Optional[ExchangePlan] = None) -> HistogramState:
-    """Fold one materialized ``[P, chunk_records]`` chunk (row d is node
-    d's) into the state: the streaming engine's step, so the mapreduce
-    shuffle and its stats are exactly the engine's."""
+               plan: Optional[ExchangePlan] = None,
+               group: Optional[nodes_lib.NodeGroup] = None) -> HistogramState:
+    """Fold one materialized ``[P_local, chunk_records]`` chunk (row r is
+    local node r's) into the state: the streaming engine's step, so the
+    mapreduce shuffle and its stats are exactly the engine's."""
     _check_backend(backend)
     carry = _accumulate_chunk(state.carry, chunk, backend, s_pad, num_weeks,
-                              plan or ExchangePlan())
+                              plan or ExchangePlan(), group)
     return HistogramState(carry, state.chunks_folded + 1)
 
 
@@ -211,34 +230,41 @@ def fold_chunk_range(state: HistogramState, seed, cfg,
                      chunk_records: int, *, s_pad: int,
                      num_weeks: int = WEEKS_PER_YEAR,
                      backend: str = "streams",
-                     plan: Optional[ExchangePlan] = None) -> HistogramState:
+                     plan: Optional[ExchangePlan] = None,
+                     group: Optional[nodes_lib.NodeGroup] = None
+                     ) -> HistogramState:
     """Regenerate and fold ``num_chunks`` steps (``scan_chunk_range``),
     advancing the cursor by ``num_chunks``."""
     _check_backend(backend)
     carry = scan_chunk_range(state.carry, seed, cfg, first_chunks,
                              num_chunks, chunk_records, s_pad=s_pad,
-                             num_weeks=num_weeks, backend=backend, plan=plan)
+                             num_weeks=num_weeks, backend=backend, plan=plan,
+                             group=group)
     return HistogramState(carry, state.chunks_folded + num_chunks)
 
 
 def snapshot(state: HistogramState, *, backend: str, s_pad: int,
-             num_weeks: int = WEEKS_PER_YEAR):
+             num_weeks: int = WEEKS_PER_YEAR,
+             group: Optional[nodes_lib.NodeGroup] = None):
     """The full-site histogram (and mapreduce's global ShuffleStats) of the
     state, which stays as it is: a resident service keeps folding."""
-    return post_scan_collective(state.carry, backend, s_pad, num_weeks)
+    return post_scan_collective(state.carry, backend, s_pad, num_weeks,
+                                group)
 
 
 def streaming_histogram_from_log(log: EventLog, s_pad: int,
                                  chunk_records: int,
                                  num_weeks: int = WEEKS_PER_YEAR,
                                  backend: str = "streams",
-                                 plan: Optional[ExchangePlan] = None):
-    """Chunked histogram over a ``[P, n]`` log: node d folds its records in
-    steps of ``chunk_records``. ``n`` must divide by ``chunk_records`` (the
-    runner pads with invalid rows). Returns ``(histogram [s_pad, W, 2],
-    ShuffleStats or None)``."""
+                                 plan: Optional[ExchangePlan] = None,
+                                 group: Optional[nodes_lib.NodeGroup] = None):
+    """Chunked histogram over a ``[P_local, n]`` log: node d folds its
+    records in steps of ``chunk_records``. ``n`` must divide by
+    ``chunk_records`` (the runner pads with invalid rows). Returns
+    ``(histogram [s_pad, W, 2], ShuffleStats or None)``."""
     _check_backend(backend)
-    parts, n = log.site_id.shape
+    rows, n = log.site_id.shape
+    parts = nodes_lib.group_of_rows(group, rows).nodes
     if n % chunk_records:
         raise ValueError(
             f"per-node record count ({n}) must be divisible by "
@@ -246,29 +272,35 @@ def streaming_histogram_from_log(log: EventLog, s_pad: int,
             f"first (pad_log_to)")
     plan = plan or ExchangePlan()
     log = log._replace(valid=log.valid_mask())
-    carry = carry_init(backend, parts, s_pad, num_weeks, log.site_id.device)
+    carry = carry_init(backend, parts, s_pad, num_weeks, log.site_id.device,
+                       group)
     for j in range(n // chunk_records):
-        rows = slice(j * chunk_records, (j + 1) * chunk_records)
-        chunk = log.map(lambda c: c[:, rows].contiguous())
+        cols = slice(j * chunk_records, (j + 1) * chunk_records)
+        chunk = log.map(lambda c: c[:, cols].contiguous())
         carry = _accumulate_chunk(carry, chunk, backend, s_pad, num_weeks,
-                                  plan)
-    return post_scan_collective(carry, backend, s_pad, num_weeks)
+                                  plan, group)
+    return post_scan_collective(carry, backend, s_pad, num_weeks, group)
 
 
 def streaming_histogram_generate(seed, cfg, s_pad: int, *, parts: int,
                                  chunks_per_node: int, chunk_records: int,
                                  num_weeks: int = WEEKS_PER_YEAR,
                                  backend: str = "streams",
-                                 plan: Optional[ExchangePlan] = None):
+                                 plan: Optional[ExchangePlan] = None,
+                                 group: Optional[nodes_lib.NodeGroup] = None):
     """Generate-as-you-go chunked histogram on the device of the seed's
-    tables: node d folds chunks ``[d * chunks_per_node, (d+1) *
-    chunks_per_node)``, the layout ``generate_chunked_log`` materializes,
-    so the result equals the one-shot run over that log. Returns
-    ``(histogram, ShuffleStats or None)``."""
+    tables: node d (of ``parts``; only the nodes of ``group`` here) folds
+    chunks ``[d * chunks_per_node, (d+1) * chunks_per_node)``, the layout
+    ``generate_chunked_log`` materializes, so the result equals the
+    one-shot run over that log. Returns ``(histogram, ShuffleStats or
+    None)``."""
+    group = nodes_lib.group_of(group, parts)
     carry = carry_init(backend, parts, s_pad, num_weeks,
-                       seed.entity_mark_time.device)
+                       seed.entity_mark_time.device, group)
     carry = scan_chunk_range(
-        carry, seed, cfg, [d * chunks_per_node for d in range(parts)],
+        carry, seed, cfg,
+        [d * chunks_per_node
+         for d in range(group.first, group.first + group.local)],
         chunks_per_node, chunk_records, s_pad=s_pad, num_weeks=num_weeks,
-        backend=backend, plan=plan)
-    return post_scan_collective(carry, backend, s_pad, num_weeks)
+        backend=backend, plan=plan, group=group)
+    return post_scan_collective(carry, backend, s_pad, num_weeks, group)

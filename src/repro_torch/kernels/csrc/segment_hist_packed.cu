@@ -2,14 +2,16 @@
 // for Hopper (sm_90a).
 //
 // K3 replaces src/repro/kernels/segment_hist/segment_hist.py:_packed_kernel.
-// Row `node` of the [P, L] words holds the words that node received; it
-// adds into hist[node] of the [P, S_local, W, 2] output. A word (site<<8 |
-// week<<2 | mark<<1 | valid, an int32 bit pattern) is read as unsigned, so
-// the shifts are logical and a site >= 2^23 (bit 31 set) unpacks
-// correctly. A word counts when it is valid, owned by this node (site % P
-// == node), inside the node's block (site / P < S_local) and inside the
-// week range: 1 into [site / P][week][0] and the mark bit into [...][1].
-// The caller zeroes hist.
+// Row r of the [rows, L] words holds the words node `first_node + r` of P
+// received, and adds into hist[r] of the [rows, S_local, W, 2] output (the
+// Pallas kernel is told its node as `my_index`; one process holds all P
+// rows, first_node 0, a process of a gang the rows of its own nodes). A
+// word (site<<8 | week<<2 | mark<<1 | valid, an int32 bit pattern) is read
+// as unsigned, so the shifts are logical and a site >= 2^23 (bit 31 set)
+// unpacks correctly. A word counts when it is valid, owned by the row's
+// node (site % P == node), inside the node's block (site / P < S_local) and
+// inside the week range: 1 into [site / P][week][0] and the mark bit into
+// [...][1]. The caller zeroes hist.
 //
 // What bounds it: the words are read once (a memory pass), but every word
 // is a scattered integer atomic, and MalGen's power law makes a few
@@ -69,7 +71,7 @@ __device__ __forceinline__ unsigned mix(int key) {
   return (unsigned)key * 2654435761u;
 }
 
-// The word's local site if row `node` counts it, else -1; its week.
+// The word's local site if node `node` counts it, else -1; its week.
 __device__ __forceinline__ int word_site(unsigned w, unsigned node,
                                          unsigned num_parts, int s_local,
                                          int num_weeks, int* week) {
@@ -84,20 +86,21 @@ __device__ __forceinline__ int word_site(unsigned w, unsigned node,
 
 __global__ void __launch_bounds__(kSelectThreads)
 hot_sites_kernel(const int* __restrict__ words, int* __restrict__ hot,
-                 long long len, int num_parts, int s_local, int num_weeks,
-                 int sample, int threshold) {
+                 long long len, int num_parts, int first_node, int s_local,
+                 int num_weeks, int sample, int threshold) {
   extern __shared__ int2 table[];           // {site or -1, count}
   __shared__ int cand_site[kCandidates];
   __shared__ int cand_count[kCandidates];
   __shared__ int num_cand;
   const int tid = threadIdx.x;
-  const unsigned node = blockIdx.x;
+  const unsigned row = blockIdx.x;
+  const unsigned node = (unsigned)first_node + row;
   for (int i = tid; i < kSelectSlots; i += kSelectThreads)
     table[i] = make_int2(-1, 0);
   if (tid == 0) num_cand = 0;
   __syncthreads();
   for (int k = tid; k < sample; k += kSelectThreads) {
-    const long long r = (long long)node * len + (long long)k * len / sample;
+    const long long r = (long long)row * len + (long long)k * len / sample;
     int week;
     const int s = word_site((unsigned)words[r], node, (unsigned)num_parts,
                             s_local, num_weeks, &week);
@@ -125,7 +128,7 @@ hot_sites_kernel(const int* __restrict__ words, int* __restrict__ hot,
   }
   __syncthreads();
   const int nc = min(num_cand, kCandidates);
-  int* out = hot + (long long)node * (kHot + 1);
+  int* out = hot + (long long)row * (kHot + 1);
   if (tid < nc) {
     const int s = cand_site[tid], c = cand_count[tid];
     int rank = 0;
@@ -142,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
 packed_hist_kernel(const int* __restrict__ words,
                    const int* __restrict__ hot, int* __restrict__ hist,
                    unsigned* __restrict__ work, long long len, int num_nodes,
-                   int num_parts, int s_local, int num_weeks,
+                   int num_parts, int first_node, int s_local, int num_weeks,
                    int hot_capacity) {
   extern __shared__ int smem[];
   int2* table = reinterpret_cast<int2*>(smem);          // {site, slot}
@@ -206,8 +209,8 @@ packed_hist_kernel(const int* __restrict__ words,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         int w;
-        const int s = word_site(wd[u], (unsigned)row, (unsigned)num_parts,
-                                s_local, num_weeks, &w);
+        const int s = word_site(wd[u], (unsigned)(first_node + row),
+                                (unsigned)num_parts, s_local, num_weeks, &w);
         if (s < 0) continue;
         const bool m = (wd[u] >> 1) & 1u;
         int slot = -1;
@@ -235,10 +238,13 @@ packed_hist_kernel(const int* __restrict__ words,
   }
 }
 
-bool bad_geometry(long long len, int num_nodes, int num_parts, int blocks,
-                  int hot_capacity, int sample, int num_weeks) {
+bool bad_geometry(long long len, int num_nodes, int num_parts,
+                  int first_node, int blocks, int hot_capacity, int sample,
+                  int num_weeks) {
   const long long chunks = (len + kChunk - 1) / kChunk * num_nodes;
-  return num_parts < 1 || blocks < 1 || chunks + blocks >= (1ll << 32) ||
+  return num_parts < 1 || first_node < 0 ||
+         (long long)first_node + num_nodes > num_parts || blocks < 1 ||
+         chunks + blocks >= (1ll << 32) ||
          hot_capacity < 0 || hot_capacity > kHot || sample < 0 ||
          sample > kSample || num_weeks < 1 || num_weeks > 64 ||
          (long long)2 * kTableSlots * 4 +
@@ -246,58 +252,64 @@ bool bad_geometry(long long len, int num_nodes, int num_parts, int blocks,
 }
 
 int launch_hot_sites(const int* words, int* hot, long long len,
-                     int num_nodes, int num_parts, int s_local,
-                     int num_weeks, int sample, int threshold,
+                     int num_nodes, int num_parts, int first_node,
+                     int s_local, int num_weeks, int sample, int threshold,
                      cudaStream_t stream) {
   const int smem = kSelectSlots * (int)sizeof(int2);
   cudaError_t err = cudaFuncSetAttribute(
       hot_sites_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   hot_sites_kernel<<<num_nodes, kSelectThreads, smem, stream>>>(
-      words, hot, len, num_parts, s_local, num_weeks, sample, threshold);
+      words, hot, len, num_parts, first_node, s_local, num_weeks, sample,
+      threshold);
   return (int)cudaGetLastError();
 }
 
 int launch_tiled(const int* words, const int* hot, int* hist, unsigned* work,
-                 long long len, int num_nodes, int num_parts, int s_local,
-                 int num_weeks, int blocks, int hot_capacity,
+                 long long len, int num_nodes, int num_parts, int first_node,
+                 int s_local, int num_weeks, int blocks, int hot_capacity,
                  cudaStream_t stream) {
   const cudaError_t err = cudaMemsetAsync(work, 0, sizeof(unsigned), stream);
   if (err != cudaSuccess) return (int)err;
   const int smem = 2 * kTableSlots * 4 + hot_capacity * num_weeks * 8;
   packed_hist_kernel<<<blocks, kThreads, smem, stream>>>(
-      words, hot, hist, work, len, num_nodes, num_parts, s_local, num_weeks,
-      hot_capacity);
+      words, hot, hist, work, len, num_nodes, num_parts, first_node, s_local,
+      num_weeks, hot_capacity);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The hot list alone: hot[P][65] from `sample` words a row.
+// The hot list alone: hot[rows][65] from `sample` words a row; row r is
+// node first_node + r of num_parts.
 extern "C" int packed_hist_hot_sites(const int* words, int* hot, long long len,
                                      int num_nodes, int num_parts,
-                                     int s_local, int num_weeks, int sample,
-                                     int threshold, void* stream) {
+                                     int first_node, int s_local,
+                                     int num_weeks, int sample, int threshold,
+                                     void* stream) {
   if (num_nodes == 0) return (int)cudaGetLastError();
-  if (bad_geometry(len, num_nodes, num_parts, 1, 0, sample, num_weeks) ||
+  if (bad_geometry(len, num_nodes, num_parts, first_node, 1, 0, sample,
+                   num_weeks) ||
       (len > 0 && sample == 0))
     return (int)cudaErrorInvalidValue;
-  return launch_hot_sites(words, hot, len, num_nodes, num_parts, s_local,
-                          num_weeks, sample, threshold, (cudaStream_t)stream);
+  return launch_hot_sites(words, hot, len, num_nodes, num_parts, first_node,
+                          s_local, num_weeks, sample, threshold,
+                          (cudaStream_t)stream);
 }
 
 // The histogram given a hot list (any list: exact for all of them). work
 // is scratch of one unsigned int.
 extern "C" int packed_hist_tiled(const int* words, const int* hot, int* hist,
                                  unsigned* work, long long len, int num_nodes,
-                                 int num_parts, int s_local, int num_weeks,
-                                 int blocks, int hot_capacity, void* stream) {
+                                 int num_parts, int first_node, int s_local,
+                                 int num_weeks, int blocks, int hot_capacity,
+                                 void* stream) {
   if (len == 0 || num_nodes == 0) return (int)cudaGetLastError();
-  if (bad_geometry(len, num_nodes, num_parts, blocks, hot_capacity, 0,
-                   num_weeks))
+  if (bad_geometry(len, num_nodes, num_parts, first_node, blocks,
+                   hot_capacity, 0, num_weeks))
     return (int)cudaErrorInvalidValue;
   return launch_tiled(words, hot, hist, work, len, num_nodes, num_parts,
-                      s_local, num_weeks, blocks, hot_capacity,
+                      first_node, s_local, num_weeks, blocks, hot_capacity,
                       (cudaStream_t)stream);
 }
 
@@ -305,18 +317,18 @@ extern "C" int packed_hist_tiled(const int* words, const int* hot, int* hist,
 // pass. hot is scratch of [P][65] ints, work of one unsigned int.
 extern "C" int packed_hist(const int* words, int* hist, int* hot,
                            unsigned* work, long long len, int num_nodes,
-                           int num_parts, int s_local, int num_weeks,
-                           int blocks, int hot_capacity, int sample,
-                           int threshold, void* stream) {
+                           int num_parts, int first_node, int s_local,
+                           int num_weeks, int blocks, int hot_capacity,
+                           int sample, int threshold, void* stream) {
   if (len == 0 || num_nodes == 0) return (int)cudaGetLastError();
-  if (sample < 1 || bad_geometry(len, num_nodes, num_parts, blocks,
-                                 hot_capacity, sample, num_weeks))
+  if (sample < 1 || bad_geometry(len, num_nodes, num_parts, first_node,
+                                 blocks, hot_capacity, sample, num_weeks))
     return (int)cudaErrorInvalidValue;
   const int err = launch_hot_sites(words, hot, len, num_nodes, num_parts,
-                                   s_local, num_weeks, sample, threshold,
-                                   (cudaStream_t)stream);
+                                   first_node, s_local, num_weeks, sample,
+                                   threshold, (cudaStream_t)stream);
   if (err != 0) return err;
   return launch_tiled(words, hot, hist, work, len, num_nodes, num_parts,
-                      s_local, num_weeks, blocks, hot_capacity,
+                      first_node, s_local, num_weeks, blocks, hot_capacity,
                       (cudaStream_t)stream);
 }

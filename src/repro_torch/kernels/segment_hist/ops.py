@@ -8,8 +8,10 @@ Counterpart of ``repro/kernels/segment_hist/ops.py``:
   tensor the wrapper runs K4 (``csrc/segment_hist.cu``) for all P nodes;
   on a CPU tensor it runs ``segment_hist_plain``.
 - ``segment_hist_packed_words`` is the MapReduce reducer's fused unpack +
-  histogram over shuffled words: row ``r`` of int32 ``[P, L]`` holds the L
-  words node ``r`` received. On a CUDA tensor it runs K3
+  histogram over shuffled words: row ``r`` of int32 ``[rows, L]`` holds the
+  L words node ``first_node + r`` received (``first_node`` 0 and P rows in
+  one process; a process of a gang holds its own nodes' rows, as the JAX
+  kernel is told its node as ``my_index``). On a CUDA tensor it runs K3
   (``csrc/segment_hist_packed.cu``); on a CPU tensor it runs
   ``segment_hist_packed_words_plain`` (unpack, then ``index_add_``).
 
@@ -129,9 +131,9 @@ def _check(err: int, name: str) -> None:
 
 
 # argument kinds of each C entry point, as declared in its source
-PACKED_SIGNATURES = {"packed_hist": "ppppqiiiiiiiip",
-                     "packed_hist_hot_sites": "ppqiiiiiip",
-                     "packed_hist_tiled": "ppppqiiiiiip"}
+PACKED_SIGNATURES = {"packed_hist": "ppppqiiiiiiiiip",
+                     "packed_hist_hot_sites": "ppqiiiiiiip",
+                     "packed_hist_tiled": "ppppqiiiiiiip"}
 HIST_SIGNATURES = {"segment_hist": "pppppppqiiiiiiiip",
                    "segment_hist_hot_sites": "ppppqiiiiiip",
                    "segment_hist_tiled": "pppppppqiiiiiip"}
@@ -193,13 +195,20 @@ def record_sites(site: torch.Tensor, week: torch.Tensor, valid: torch.Tensor,
     return torch.where(ok, s, -1)
 
 
+def _row_nodes(words: torch.Tensor, first_node: int) -> torch.Tensor:
+    """``[rows, 1]``: the node of each row of the words."""
+    return torch.arange(first_node, first_node + words.shape[0],
+                        device=words.device).unsqueeze(1)
+
+
 def word_sites(words: torch.Tensor, *, num_sites_local: int,
-               num_partitions: int,
-               num_weeks: int = WEEKS_PER_YEAR) -> torch.Tensor:
-    """K3's key of each word: its local site ``site // P`` where row r owns
-    it (``site % P == r``) and its week is in range, else -1."""
+               num_partitions: int, num_weeks: int = WEEKS_PER_YEAR,
+               first_node: int = 0) -> torch.Tensor:
+    """K3's key of each word: its local site ``site // P`` where the node
+    of row r (``first_node + r``) owns it and its week is in range, else
+    -1."""
     site, week, _, valid = unpack_site_week_mark(words)
-    node = torch.arange(words.shape[0], device=words.device).unsqueeze(1)
+    node = _row_nodes(words, first_node)
     local = site // num_partitions
     ok = (valid & (site % num_partitions == node) & (local < num_sites_local)
           & (week < num_weeks))
@@ -352,25 +361,27 @@ def segment_hist_eventlog(log: EventLog, num_sites: int,
 def segment_hist_packed_words_plain(words: torch.Tensor, *,
                                     num_sites_local: int,
                                     num_partitions: int,
-                                    num_weeks: int = WEEKS_PER_YEAR
-                                    ) -> torch.Tensor:
-    """Plain version: unpack, keep the words node ``r`` owns
-    (``site % P == r``), rebase to ``site // P``, histogram."""
+                                    num_weeks: int = WEEKS_PER_YEAR,
+                                    first_node: int = 0) -> torch.Tensor:
+    """Plain version: unpack, keep the words the node of row r
+    (``first_node + r``) owns (``site % P`` is that node), rebase to ``site
+    // P``, histogram."""
     site, week, mark, valid = unpack_site_week_mark(words)
-    node = torch.arange(words.shape[0], device=words.device).unsqueeze(1)
-    ok = valid & (site % num_partitions == node)
+    ok = valid & (site % num_partitions == _row_nodes(words, first_node))
     return segment_hist_ref(site // num_partitions, week, mark, ok,
                             num_sites_local, num_weeks)
 
 
-def _check_words(words, num_sites_local, num_partitions, num_weeks) -> None:
+def _check_words(words, num_sites_local, num_partitions, num_weeks,
+                 first_node) -> None:
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"segment_hist_packed_words: expected int32 "
-                         f"[P, L] words, got {words.dtype} "
+                         f"[rows, L] words, got {words.dtype} "
                          f"{tuple(words.shape)}")
-    if words.shape[0] != num_partitions:
+    if first_node < 0 or first_node + words.shape[0] > num_partitions:
         raise ValueError(f"segment_hist_packed_words: {words.shape[0]} rows "
-                         f"for {num_partitions} nodes")
+                         f"from node {first_node} for {num_partitions} "
+                         f"nodes")
     if not words.is_contiguous():
         raise ValueError("segment_hist_packed_words: words must be "
                          "contiguous")
@@ -381,17 +392,20 @@ def _check_words(words, num_sites_local, num_partitions, num_weeks) -> None:
 
 def segment_hist_packed_words(words: torch.Tensor, *, num_sites_local: int,
                               num_partitions: int,
-                              num_weeks: int = WEEKS_PER_YEAR
-                              ) -> torch.Tensor:
-    """Owned int32 ``[P, num_sites_local, num_weeks, 2]`` histograms of the
-    shuffled words, one per receiving node. Invalid slots are zero words;
-    words that node r does not own, or whose rebased site or week is out
-    of range, count nowhere."""
-    _check_words(words, num_sites_local, num_partitions, num_weeks)
+                              num_weeks: int = WEEKS_PER_YEAR,
+                              first_node: int = 0) -> torch.Tensor:
+    """Owned int32 ``[rows, num_sites_local, num_weeks, 2]`` histograms of
+    the shuffled words, one per receiving node: row r is node ``first_node
+    + r`` of ``num_partitions``. Invalid slots are zero words; words that
+    the row's node does not own, or whose rebased site or week is out of
+    range, count nowhere."""
+    _check_words(words, num_sites_local, num_partitions, num_weeks,
+                 first_node)
     if words.device.type != "cuda":
         return segment_hist_packed_words_plain(
             words, num_sites_local=num_sites_local,
-            num_partitions=num_partitions, num_weeks=num_weeks)
+            num_partitions=num_partitions, num_weeks=num_weeks,
+            first_node=first_node)
     p, length = words.shape
     geo = launch_geometry(words, length, num_weeks)
     hist = torch.zeros(p, num_sites_local, num_weeks, 2, dtype=torch.int32,
@@ -401,9 +415,9 @@ def segment_hist_packed_words(words: torch.Tensor, *, num_sites_local: int,
     segment_hist_packed_words.launches += 1
     _check(_lib().packed_hist(
         words.data_ptr(), hist.data_ptr(), hot.data_ptr(), work.data_ptr(),
-        length, p, num_partitions, num_sites_local, num_weeks, geo.blocks,
-        geo.hot_capacity, geo.sample, geo.threshold, _stream(words)),
-        "packed_hist")
+        length, p, num_partitions, first_node, num_sites_local, num_weeks,
+        geo.blocks, geo.hot_capacity, geo.sample, geo.threshold,
+        _stream(words)), "packed_hist")
     return hist
 
 
@@ -412,23 +426,25 @@ segment_hist_packed_words.launches = 0
 
 def segment_hist_packed_hot_sites(words: torch.Tensor, *,
                                   num_sites_local: int, num_partitions: int,
-                                  num_weeks: int = WEEKS_PER_YEAR
-                                  ) -> torch.Tensor:
+                                  num_weeks: int = WEEKS_PER_YEAR,
+                                  first_node: int = 0) -> torch.Tensor:
     """The hot list ``segment_hist_packed_words`` derives from the words,
-    int32 ``[P, HOT_LIST]`` of local sites: K3's first launch alone on a
+    int32 ``[rows, HOT_LIST]`` of local sites: K3's first launch alone on a
     CUDA tensor, ``hot_sites_plain`` on a CPU tensor (with an H100's
     geometry)."""
-    _check_words(words, num_sites_local, num_partitions, num_weeks)
+    _check_words(words, num_sites_local, num_partitions, num_weeks,
+                 first_node)
     p, length = words.shape
     geo = launch_geometry(words, length, num_weeks)
     if words.device.type != "cuda":
         keys = word_sites(words, num_sites_local=num_sites_local,
-                          num_partitions=num_partitions, num_weeks=num_weeks)
+                          num_partitions=num_partitions, num_weeks=num_weeks,
+                          first_node=first_node)
         return hot_sites_plain(keys, geo.sample, geo.threshold)
     hot = torch.empty(p, HOT_LIST, dtype=torch.int32, device=words.device)
     _check(_lib().packed_hist_hot_sites(
         words.data_ptr(), hot.data_ptr(), length, p, num_partitions,
-        num_sites_local, num_weeks, geo.sample, geo.threshold,
+        first_node, num_sites_local, num_weeks, geo.sample, geo.threshold,
         _stream(words)), "packed_hist_hot_sites")
     return hot
 
@@ -436,17 +452,19 @@ def segment_hist_packed_hot_sites(words: torch.Tensor, *,
 def segment_hist_packed_words_tiled(words: torch.Tensor, hot: torch.Tensor,
                                     *, num_sites_local: int,
                                     num_partitions: int,
-                                    num_weeks: int = WEEKS_PER_YEAR
-                                    ) -> torch.Tensor:
+                                    num_weeks: int = WEEKS_PER_YEAR,
+                                    first_node: int = 0) -> torch.Tensor:
     """``segment_hist_packed_words`` with the hot list of local sites given
-    (int32 ``[P, HOT_LIST]``): K3's histogram launch alone. The result does
-    not depend on the list."""
-    _check_words(words, num_sites_local, num_partitions, num_weeks)
+    (int32 ``[rows, HOT_LIST]``): K3's histogram launch alone. The result
+    does not depend on the list."""
+    _check_words(words, num_sites_local, num_partitions, num_weeks,
+                 first_node)
     _check_hot(hot, words.shape[0], words.device)
     if words.device.type != "cuda":
         return segment_hist_packed_words_plain(
             words, num_sites_local=num_sites_local,
-            num_partitions=num_partitions, num_weeks=num_weeks)
+            num_partitions=num_partitions, num_weeks=num_weeks,
+            first_node=first_node)
     p, length = words.shape
     geo = launch_geometry(words, length, num_weeks)
     hist = torch.zeros(p, num_sites_local, num_weeks, 2, dtype=torch.int32,
@@ -455,6 +473,6 @@ def segment_hist_packed_words_tiled(words: torch.Tensor, hot: torch.Tensor,
     segment_hist_packed_words.launches += 1
     _check(_lib().packed_hist_tiled(
         words.data_ptr(), hot.data_ptr(), hist.data_ptr(), work.data_ptr(),
-        length, p, num_partitions, num_sites_local, num_weeks, geo.blocks,
-        geo.hot_capacity, _stream(words)), "packed_hist_tiled")
+        length, p, num_partitions, first_node, num_sites_local, num_weeks,
+        geo.blocks, geo.hot_capacity, _stream(words)), "packed_hist_tiled")
     return hist

@@ -36,6 +36,19 @@ bounded retry (``--retry-attempts``) and NodeDoctor rerouting. These flags
 need ``--stream-chunks``; with ``--gen-device``, ``--check`` or
 ``--overlap on|off`` they are an argparse error (the JAX launcher ignores
 the last two on this path).
+
+Multi-process runs: add ``--num-processes N`` and the launcher forks N
+localhost workers joined over gloo (``repro_torch.launch.coordinator``),
+each holding ``nodes/N`` of the nodes; the collectives (the mapreduce
+``all_to_all`` and its round termination, the psums and gathers) cross
+the processes, and every rank finalizes the full result. ``--coordinator
+HOST:PORT --process-id K`` instead joins an externally-launched gang. Rank
+k runs on ``cuda:{k % device_count}`` (ranks share a card; gloo, not NCCL,
+joins them), or on the CPU with ``--device cpu``. Each timed run starts
+after a barrier; ``--check`` runs on every rank against its own CPU
+oracle, and rank 0 alone writes ``--bench-json``. ``--gen-device`` and
+``--checkpoint-dir/--inject-faults`` are single-process, as in the JAX
+launcher.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from __future__ import annotations
 import argparse
 import pathlib
 import statistics
+import sys
 import time
 
 import torch
@@ -60,6 +74,7 @@ from repro_torch.core import malstone_single_device, run
 from repro_torch.core.backends import resolve_exchange_impl
 from repro_torch.core.overlap import OverlapStreamingRunner
 from repro_torch.core.runner import RUN_BACKENDS, _pad_sites
+from repro_torch.launch import coordinator, mesh
 from repro_torch.malgen import (
     MalGenConfig,
     generate_chunked_log,
@@ -84,8 +99,20 @@ def _timed(fn, device: torch.device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _device(name: str, cfg: coordinator.DistConfig) -> torch.device:
+    """The run's device; rank k of a gang takes card ``k % count``."""
+    device = resolve_device(name)
+    if device.type == "cuda" and cfg.is_distributed:
+        device = torch.device(
+            "cuda", cfg.process_id % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    coordinator.add_arguments(ap)
     ap.add_argument("--nodes", type=int, default=1)
     ap.add_argument("--records-per-node", type=int, default=262_144)
     ap.add_argument("--sites", type=int, default=10_000)
@@ -163,6 +190,16 @@ def main(argv=None):
                          " repro_torch.bench.compare")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.num_processes > 1:
+        # the JAX launcher's refusals, checked before any rank is forked
+        if args.checkpoint_dir is not None or args.inject_faults:
+            ap.error("--checkpoint-dir/--inject-faults are single-process"
+                     " for now (multi-writer checkpoints over"
+                     " jax.distributed are a separate work item)")
+        if args.gen_device:
+            ap.error("--gen-device is single-process for now (its seed"
+                     " closes over per-shard static layout; use the"
+                     " streaming engine for multi-process runs)")
     if args.runs < 1:
         ap.error("--runs must be >= 1")
     if args.stream_chunks < 0 or (
@@ -197,7 +234,13 @@ def main(argv=None):
     chunk = (args.records_per_node // args.stream_chunks
              if args.stream_chunks else 0)
 
-    device = resolve_device(args.device)
+    # a spawn parent forks the ranks of this command and exits with the
+    # gang's status; a rank joins the gang and runs on
+    dist_cfg = coordinator.bootstrap(
+        ["-m", "repro_torch.launch.malstone", *argv],
+        local_devices_for=args.nodes, build_kernels=args.device == "cuda")
+    device = _device(args.device, dist_cfg)
+    group = mesh.global_nodes(args.nodes)
     cfg = MalGenConfig(num_sites=args.sites, num_entities=args.entities)
     total = args.nodes * args.records_per_node
     plan = ExchangePlan(impl=args.exchange_impl,
@@ -207,6 +250,9 @@ def main(argv=None):
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {kind}; backend: {args.backend}")
+    if group.distributed:
+        print(f"[{coordinator.process_banner(dist_cfg)}] {group.local} "
+              f"local of {group.nodes} global nodes on {device}", flush=True)
     if resumable:
         return _run_resumable(args, device, cfg, chunk, plan)
 
@@ -218,11 +264,13 @@ def main(argv=None):
     else:
         seed, ms = _timed(lambda: make_seed(0, cfg, total, device=device),
                           device)
+    seed = mesh.replicate(seed, group)
     print(f"MalGen seed: {total:,} records ({total * 100 / 1e6:.0f} MB "
           f"logical) over {args.nodes} nodes, seeded in {ms:.1f} ms "
           f"(scatter payload {seed.seed_bytes / 1e6:.1f} MB)")
     kw = dict(nodes=args.nodes, plan=plan, statistic=args.statistic,
-              backend=args.backend, device=device, return_shuffle_stats=True)
+              backend=args.backend, device=device, return_shuffle_stats=True,
+              group=group)
     if streaming_seed and args.overlap != "auto":
         print(f"  streaming: {args.stream_chunks} chunks of {chunk:,} per "
               f"node, regenerated in every run, "
@@ -232,7 +280,7 @@ def main(argv=None):
         runner = OverlapStreamingRunner(
             seed, cfg, nodes=args.nodes, num_chunks=num_chunks,
             chunk_records=chunk, num_sites=cfg.num_sites,
-            backend=args.backend, plan=plan, device=device)
+            backend=args.backend, plan=plan, device=device, group=group)
         overlap_on = args.overlap == "on"
 
         def fn():
@@ -264,8 +312,11 @@ def main(argv=None):
             return run(log, cfg.num_sites, **kw)
 
     fn()  # warm-up: builds and loads the kernels on first CUDA use
+    group.clock.reset()
     samples = []
     for r in range(args.runs):
+        if group.distributed:
+            torch.distributed.barrier()       # the ranks start together
         (result, stats), ms = _timed(fn, device)
         samples.append(ms)
         print(f"  run {r + 1}: {ms:.3f} ms "
@@ -301,6 +352,13 @@ def main(argv=None):
         }
     print(f"  rho {tuple(result.rho.shape)} mean "
           f"{float(result.rho.double().mean()):.6f}")
+    if group.distributed:
+        clock = group.clock
+        print(f"  exchange, rank {group.rank}, over {args.runs} runs: "
+              f"{clock.bytes:,} bytes in {clock.calls} gloo calls; "
+              f"gloo {clock.gloo_ms:.3f} ms, to host {clock.d2h_ms:.3f} ms, "
+              f"back {clock.h2d_ms:.3f} ms, waiting for the device "
+              f"{clock.wait_ms:.3f} ms")
 
     if args.check:
         # the oracle's records are the run's, made on the run's device; the
@@ -324,7 +382,9 @@ def main(argv=None):
               f"{device.type} and reduced on the CPU in "
               f"{time.perf_counter() - t0:.3f} s")
 
-    if args.bench_json:
+    # only rank 0 writes the document in a gang (every rank would otherwise
+    # race on the same path with identical content)
+    if args.bench_json and group.rank == 0:
         engine = "streaming" if args.stream_chunks else "oneshot"
         stat_slug = args.statistic.lower().replace("-", "")
         scenario = f"launch_malstone_{stat_slug}_{args.backend}_{engine}"
@@ -342,7 +402,7 @@ def main(argv=None):
              "sites": args.sites, "entities": args.entities,
              "stream_chunks": args.stream_chunks,
              "overlap": args.overlap,
-             "num_processes": 1,
+             "num_processes": args.num_processes,
              "capacity_factor": args.capacity_factor,
              "exchange_impl": args.exchange_impl,
              # the port has no deprecated --packed-shuffle alias: the key
@@ -354,6 +414,8 @@ def main(argv=None):
             records=total, derived=shuffle_derived)
         out = schema.write_document(doc, path=args.bench_json)
         print(f"wrote {out}")
+    if group.distributed:
+        torch.distributed.destroy_process_group()
 
 
 def _run_resumable(args, device, cfg, chunk, exchange_plan):

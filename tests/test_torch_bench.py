@@ -6,8 +6,9 @@ mirrored):
   package passing the other's validator;
 - compare: the same report from both packages on the same pair of
   documents, and the CLI's exit codes 0 / 1 / 2;
-- the registry: JAX's scenario names minus the three the port does not
-  register yet, with equal groups and params; the kernel pairs' inputs;
+- the registry: JAX's scenario names, all 69 (``UNREGISTERED`` lists the
+  ones the port does not register yet: none since the multi-process
+  sweep), with equal groups and params; the kernel pairs' inputs;
   the smoke selection; every scenario callable on the CPU at a tiny scale;
   the overlap pair's shared measurement and JAX's derived keys;
 - the run CLI writing a valid document.
@@ -34,11 +35,9 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = registry.Scale(records_per_node=512, num_sites=64, num_entities=256,
                       chunk_records=256, warmup=1, iters=1)
-# JAX scenarios whose module the port does not have yet (ROADMAP.md
-# Queue 1 item 7, the multi-process launcher)
-UNREGISTERED = {
-    "sweep_multiproc_p1", "sweep_multiproc_p2", "sweep_multiproc_p4",
-}
+# JAX scenarios whose module the port does not have yet: none since the
+# multi-process launcher (ROADMAP.md Queue 1 item 7)
+UNREGISTERED = set()
 
 
 # ------------------------------------------------------------------- timing
@@ -271,7 +270,7 @@ def test_scenarios_are_jax_minus_the_unregistered():
     want = set(jax_registry.SCENARIOS) - UNREGISTERED
     assert len(jax_registry.SCENARIOS) == 69
     assert UNREGISTERED <= set(jax_registry.SCENARIOS)
-    assert set(registry.SCENARIOS) == want and len(want) == 66
+    assert set(registry.SCENARIOS) == want and len(want) == 69
     for name, sc in registry.SCENARIOS.items():
         jsc = jax_registry.SCENARIOS[name]
         assert (sc.group, sc.params) == (jsc.group, jsc.params), name
@@ -289,9 +288,10 @@ def test_smoke_selection_is_jax_minus_the_unregistered():
     jax_smoke = jax_registry.preset_scenario_names("smoke")
     smoke = registry.preset_scenario_names("smoke")
     assert len(jax_smoke) == 47
-    assert len(set(jax_smoke) & UNREGISTERED) == 2
+    assert len(set(jax_smoke) & UNREGISTERED) == 0
     assert smoke == [n for n in jax_smoke if n not in UNREGISTERED]
-    assert len(smoke) == 45
+    assert len(smoke) == 47
+    assert {"sweep_multiproc_p1", "sweep_multiproc_p2"} <= set(smoke)
     assert {"streaming_overlap_on", "streaming_overlap_off"} <= set(smoke)
     assert registry.preset_scenario_names("full") == list(registry.SCENARIOS)
     with pytest.raises(ValueError):
@@ -334,8 +334,12 @@ def test_every_scenario_runs_on_the_cpu(name, cpu_ctx):
         assert res.records == nodes * rpn
         if sc.params.get("sweep") == "records_per_node":
             assert rpn == TINY.records_per_node * sc.params["multiplier"]
-        if sc.params.get("sweep") in ("mesh_size", "gen_device_mesh"):
+        if sc.params.get("sweep") in ("mesh_size", "gen_device_mesh",
+                                      "multiproc"):
             assert nodes == sc.params["nodes"]
+        if sc.params.get("sweep") == "multiproc":
+            assert res.derived["num_processes"] == sc.params["nodes"]
+            assert res.derived["shuffle_overflow"] == 0
     elif sc.group == "kernel":
         assert res.records == (TINY.num_sites
                                if sc.params["kernel"] == "windowed_ratio"
@@ -439,4 +443,4 @@ def test_run_cli_writes_a_valid_document(tmp_path):
         [sys.executable, "-m", "repro_torch.bench.run", "--list"],
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert listing.returncode == 0
-    assert "(45/66)" in listing.stdout
+    assert "(47/69)" in listing.stdout

@@ -1012,3 +1012,79 @@ def test_checkpoint_restores_onto_the_like_device(cuda_device, tmp_path):
     assert torch.equal(got["carry"], state["carry"])
     assert torch.equal(got["emb"].view(torch.int16),
                        state["emb"].view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", (4, 8))
+@pytest.mark.parametrize("first", ("1", "3", "P-1"))
+def test_packed_hist_first_node_equals_plain(cuda_device, p, first):
+    """K3 over the rows of nodes first_node .. P - 1 (a gang's rank holds
+    a block of the nodes): the histogram, the hot list and the tiled
+    launch equal their plain versions, and the one-process launch's
+    rows."""
+    first_node = p - 1 if first == "P-1" else int(first)
+    s_local = 3_000
+    words = _packed(p, 200_000, s_local, cuda_device)
+    mine = words[first_node:].contiguous()
+    kw = dict(num_sites_local=s_local, num_partitions=p, num_weeks=52)
+    reset_launch_counts()
+    got = segment_hist_packed_words(mine, first_node=first_node, **kw)
+    assert launch_counts()["segment_hist.packed"] == 1
+    torch.testing.assert_close(got, segment_hist_packed_words_plain(
+        mine, first_node=first_node, **kw), rtol=0, atol=0)
+    torch.testing.assert_close(
+        got, segment_hist_packed_words(words, **kw)[first_node:],
+        rtol=0, atol=0)
+    sh = segment_hist_ops
+    hot = sh.segment_hist_packed_hot_sites(mine, first_node=first_node, **kw)
+    geo = sh.launch_geometry(mine, mine.shape[1], 52)
+    torch.testing.assert_close(hot, sh.hot_sites_plain(
+        sh.word_sites(mine, first_node=first_node, **kw), geo.sample,
+        geo.threshold), rtol=0, atol=0)
+    torch.testing.assert_close(sh.segment_hist_packed_words_tiled(
+        mine, hot, first_node=first_node, **kw), got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="rows"):
+        segment_hist_packed_words(words, first_node=1, **kw)
+
+
+@pytest.mark.cuda
+def test_gang_on_the_card_equals_one_process(cuda_device, tmp_path):
+    """tools/gang_check.py as a gang of 2 ranks sharing the card (gloo,
+    host-staged collectives): every rank's histogram, rho bits and
+    ShuffleStats equal the one-process run on the card, and each rank
+    launches K1-K3 and K6 over its own nodes."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root / "tools"))
+    import gang_check
+
+    cases = ["seed_mapreduce_counting", "seed_streams", "log_sphere",
+             "seed_mapreduce_counting_overlap_on"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, str(root / "tools" / "gang_check.py"),
+         "--num-processes", "2", "--nodes", "4", "--out", str(tmp_path),
+         "--timeout", "240", "--cases", *cases],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    inputs = gang_check.make_inputs("small", 4, cuda_device)
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"rank{r}.npz"))
+        for name in cases:
+            want = gang_check.result_arrays(*gang_check.case_result(
+                name, inputs, 4, cuda_device))
+            for field, value in want.items():
+                a, b = got[f"P4/{name}/{field}"], value
+                if field == "rho":
+                    a, b = a.view(np.int32), b.view(np.int32)
+                np.testing.assert_array_equal(a, b, err_msg=f"{name} {field}")
+        assert int(got["P4/seed_mapreduce_counting/launches_"
+                       "segment_hist.packed"]) >= 2
+        assert int(got["P4/seed_mapreduce_counting/launches_"
+                       "powerlaw_sample"]) == 2 * 2 * 2

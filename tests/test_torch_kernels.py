@@ -19,6 +19,7 @@ from repro.kernels.segment_hist.ops import (
 from repro_torch.kernels import count_scatter as cs
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.count_scatter import ops as cs_ops
+from repro_torch.kernels.segment_hist import ops as sh_ops
 from repro_torch.kernels.segment_hist import segment_hist_packed_words
 
 
@@ -221,6 +222,41 @@ def test_packed_hist_matches_jax(p, s_local):
     assert got.sum() > 0
 
 
+@pytest.mark.parametrize("p,first_node,rows", [
+    (4, 1, 2), (4, 3, 1), (8, 1, 4), (8, 3, 4), (8, 7, 1)])
+def test_packed_hist_first_node_matches_jax(p, first_node, rows):
+    """A process of a gang holds the rows of nodes first_node ..
+    first_node + rows - 1: row r against the Pallas fused reducer told
+    ``my_index = first_node + r``; the hot list and the tiled launch of
+    those rows agree with the one-process call's rows."""
+    num_weeks, length, s_local = 52, 1500, 40
+    words = _packed_case(p * 10 + first_node, p, length, s_local,
+                         num_weeks)
+    mine = torch.from_numpy(words.view(np.int32)[first_node:first_node
+                                                 + rows].copy())
+    kw = dict(num_sites_local=s_local, num_partitions=p,
+              num_weeks=num_weeks)
+    got = segment_hist_packed_words(mine, first_node=first_node, **kw)
+    assert got.shape == (rows, s_local, num_weeks, 2)
+    for r in range(rows):
+        want = jax_packed_words(jnp.asarray(words[first_node + r]),
+                                jnp.int32(first_node + r), interpret=True,
+                                **kw)
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want),
+                                      err_msg=f"node {first_node + r}")
+    assert got.sum() > 0
+    every = segment_hist_packed_words(torch.from_numpy(words.view(np.int32)),
+                                      **kw)
+    assert torch.equal(got, every[first_node:first_node + rows])
+    hot = sh_ops.segment_hist_packed_hot_sites(mine, first_node=first_node,
+                                               **kw)
+    assert torch.equal(hot, sh_ops.segment_hist_packed_hot_sites(
+        torch.from_numpy(words.view(np.int32)),
+        **kw)[first_node:first_node + rows])
+    assert torch.equal(sh_ops.segment_hist_packed_words_tiled(
+        mine, hot, first_node=first_node, **kw), got)
+
+
 def test_packed_hist_counts_sites_with_bit_31_set():
     """Sites >= 2^23 set bit 31 of the int32 word; with a block large
     enough to own them they must count, at the site a uint32 unpack
@@ -246,9 +282,12 @@ def test_wrappers_validate_inputs():
     words = torch.zeros(2, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
         cs.count_scatter(words.to(torch.int64), words, 2)
-    with pytest.raises(ValueError, match="rows"):
-        segment_hist_packed_words(words, num_sites_local=4,
-                                  num_partitions=3)
+    # rows are nodes first_node .. first_node + rows - 1 of num_partitions
+    for first_node, parts in ((0, 1), (2, 3), (-1, 3)):
+        with pytest.raises(ValueError, match="rows"):
+            segment_hist_packed_words(words, num_sites_local=4,
+                                      num_partitions=parts,
+                                      first_node=first_node)
     with pytest.raises(ValueError, match="base"):
         cs_ops.scatter_tiles(words, words, torch.zeros(2, 1, 3))
 
