@@ -160,15 +160,42 @@
    its timeout (its session killed whole) fails the script. Phase 2 also
    holds K3 over the rows of nodes first_node .. P - 1, as a rank holds
    them, at P in {4, 8} and first_node in {1, 3, P - 1}.
+12. The static checker suite (``repro_torch.analysis``) against the card:
+   Hopper's limits in ``analysis.registry`` equal what
+   ``torch.cuda.get_device_properties`` exposes; every kernel analysis
+   case's wrapper runs once under ``torch.profiler`` (the 2^31-record
+   rows included, one at a time), and the profiler's grid, block, shared
+   memory (static plus dynamic) and registers equal the case's
+   ``launch_plan``, the static bytes of each ``ops.py`` table and the
+   registers equal ``cudaFuncGetAttributes`` (each source's
+   ``kernel_attributes``), and its largest block each kernel's
+   ``__launch_bounds__``; prints the plan of every case, planned for the
+   card's own SM count. (The records are taken in a fresh process,
+   ``python -m repro_torch.analysis.card_launches``: once a process's
+   first profiled session is a minute or so old, torch.profiler drops the
+   first kernel records of each later session, more as the process ages,
+   whatever the device did meanwhile; ``tools/profiler_record_probe.py``.)
+   Then the whole suite
+   runs with its programs on the card (the drivers under
+   ``torch.cuda.set_sync_debug_mode("warn")``, the exchanges' collectives
+   and a gang of 2 sharing the card): no finding outside
+   ``results/analysis_baseline_torch.json``, every driver within its
+   host-sync budget; prints each driver's count and the card's. Then
+   ``compute-sanitizer`` (beside nvcc): a one-line torch program under
+   its memcheck first; if the tool says "Device not supported", the
+   kernel checks are left out and the last line says so; any other
+   failure fails the script; else the seven kernels run at small shapes
+   in a child (``chip_smoke.py --sanitizer-child``) under memcheck,
+   racecheck, synccheck and initcheck, with zero errors required.
 
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
 phase 10's two fault-free runs, mapreduce and streams, ``gang_launches``
-from rank 0 of phase 11's mapreduce gang of 2), then the card's
-name and power limit as nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the
-last line. Exits non-zero, printing no result, without a CUDA device or
-when the repository's ``src/`` is not beside this file; any failed check
-exits non-zero.
+from rank 0 of phase 11's mapreduce gang of 2), then the card's name and
+power limit as nvidia-smi gives them, then ``{"ok": true, "device": ...,
+"sanitizer": ...}`` as the last line. Exits non-zero, printing no result,
+without a CUDA device or when the repository's ``src/`` is not beside
+this file; any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -179,6 +206,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -3132,7 +3160,197 @@ def gang(device, width: str = "full") -> dict:
     return result
 
 
+# ------------------------------------------------------------- phase 12
+SANITIZER = pathlib.Path("/usr/local/cuda/bin/compute-sanitizer")
+SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+# the tool's own message on a card it cannot attach to: the only reason
+# the kernel checks are left out
+SANITIZER_UNSUPPORTED = "Error: Device not supported"
+
+
+def hopper_limits_on_card(device) -> None:
+    from repro_torch.analysis import registry as lim
+
+    props = torch.cuda.get_device_properties(device)
+    want = {"max_threads_per_block": lim.MAX_THREADS_PER_BLOCK,
+            "warp_size": lim.WARP_SIZE,
+            "shared_memory_per_block": lim.SMEM_DEFAULT,
+            "shared_memory_per_block_optin": lim.SMEM_PER_BLOCK_OPTIN,
+            "shared_memory_per_multiprocessor": lim.SMEM_PER_SM,
+            "max_threads_per_multi_processor": lim.MAX_THREADS_PER_SM}
+    for attr, value in want.items():
+        got = getattr(props, attr, None)
+        if got is None:
+            log("static", f"{attr}: not exposed by torch {torch.__version__}")
+            continue
+        check(got == value, f"the card's {attr} is {got}, the analysis "
+                            f"registry says {value}")
+    log("static", "Hopper's limits equal the card's properties "
+                  f"({', '.join(want)}); the grid limits are not exposed")
+
+
+def launch_plans_on_card(device) -> list:
+    """Every analysis case once under the profiler (in a fresh process:
+    ``kernel_passes.card_launches_in_child``), held against its plan;
+    returns one row a planned launch."""
+    from repro_torch.analysis import kernel_passes as kp
+
+    sources = kp.read_sources()
+    attrs = {name: kp.card_attributes(name) for name in sources}
+    for name, src in sources.items():
+        for k, (max_threads, _) in src.bounds.items():
+            check(attrs[name][k]["max_threads"] == (max_threads or 1024),
+                  f"{k}: the card takes blocks of up to "
+                  f"{attrs[name][k]['max_threads']} threads, its "
+                  f"__launch_bounds__ says {max_threads}")
+    log("static", f"kernel attributes: {json.dumps(attrs)}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    diffs, rows = [], []
+    t0 = time.perf_counter()
+    try:
+        card = kp.card_launches_in_child()
+    except RuntimeError as e:
+        check(False, str(e))
+    for case in kp.kernel_analysis_cases():
+        records = card[case["name"]]
+        diffs += kp.compare_with_card(case, records, attrs[case["source"]],
+                                      sms)
+        for launch, rec in zip(case["plan"](sms), records):
+            rows.append({"case": case["name"], "kernel": launch.kernel,
+                         "grid": list(launch.grid), "block": launch.block[0],
+                         "static_smem": case["static_smem"][launch.kernel],
+                         "dynamic_smem": launch.dynamic_smem,
+                         "registers": rec["registers"]})
+    for d in diffs:
+        log("static", f"MISMATCH {d}")
+    check(not diffs, f"{len(diffs)} launch records differ from their plans")
+    log("static", f"{len(rows)} launches of "
+                  f"{len(kp.kernel_analysis_cases())} cases equal their "
+                  f"plans for {sms} SMs ({time.perf_counter() - t0:.1f} s): "
+                  f"{json.dumps(rows)}")
+    return rows
+
+
+def suite_on_card(device) -> dict:
+    """The whole suite with its programs on the card: the driver family,
+    and the collective family's exchanges and its gang of 2 sharing the
+    card."""
+    from repro_torch.analysis import (
+        FAMILIES,
+        AnalysisContext,
+        diff_against_baseline,
+        load_report,
+        run_passes,
+    )
+    from repro_torch.analysis.cli import DEFAULT_BASELINE
+
+    ctx = AnalysisContext(device=device)
+    t0 = time.perf_counter()
+    findings = run_passes(FAMILIES, ctx)
+    diff = diff_against_baseline(findings, load_report(DEFAULT_BASELINE))
+    syncs = {}
+    for name, r in ctx.cache["driver_runs"].items():
+        budget = ctx.cache["driver_targets"][name].budget(r.out)
+        syncs[name] = {"counted": sum(r.syncs.values()), "budget": budget,
+                       "card": r.card_syncs}
+        log("static", f"{name}: {syncs[name]['counted']} host syncs on "
+                      f"CUDA tensors (budget {budget}), {r.card_syncs} "
+                      f"reported by the card")
+    for note in ctx.notes:
+        if not note.startswith("drivers:"):
+            log("static", note)
+    for f in diff.new:
+        log("static", f"NEW {f.key}: {f.message}")
+    check(not diff.new, f"{len(diff.new)} findings outside the baseline")
+    log("static", f"suite on the card: {len(findings)} findings, none new "
+                  f"({time.perf_counter() - t0:.1f} s)")
+    return syncs
+
+
+def sanitizer_child() -> int:
+    """The seven kernels at small shapes (``--sanitizer-child``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import count_scatter, powerlaw_sample
+    from repro_torch.kernels import segment_hist as sh
+    from repro_torch.kernels import windowed_ratio as wr
+
+    d = torch.device("cuda")
+    g = torch.Generator().manual_seed(12)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g,
+                             dtype=torch.int32).to(d)
+
+    dest, words = ints(5, 2, 5000), ints(1 << 20, 2, 5000)
+    count_scatter.count_scatter(words, dest, 4)
+    site, week, mark = ints(50, 2, 5000), ints(52, 2, 5000), ints(2, 2, 5000)
+    valid = torch.ones(2, 5000, dtype=torch.bool, device=d)
+    sh.segment_hist(site, week, mark, valid, num_sites=50)
+    packed = (site << 8) | (week << 2) | (mark << 1) | 1
+    sh.segment_hist_packed_words(packed, num_sites_local=25,
+                                 num_partitions=2)
+    hist = ints(100, 300, 52, 2)
+    masks = (ints(2, 5, 52) > 0).contiguous()
+    wr.masked_window_ratio(hist, masks, masks)
+    wr.windowed_ratio(hist)
+    cdf = torch.cumsum(torch.rand(300, generator=g), 0)
+    cdf = (cdf / cdf[-1]).to(d)
+    for n in (1000, 1 << 18):
+        powerlaw_sample.powerlaw_sample(torch.rand(n, generator=g).to(d),
+                                        cdf)
+    torch.cuda.synchronize()
+    print("sanitizer child: seven kernels ran")
+    return 0
+
+
+def sanitizer_checks() -> dict:
+    if not SANITIZER.exists():
+        log("static", f"compute-sanitizer: not at {SANITIZER}; left out")
+        return {"present": False}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    probe = subprocess.run(
+        [str(SANITIZER), "--tool", "memcheck", "--error-exitcode", "9",
+         sys.executable, "-c", "import torch; x = torch.ones(4, "
+         "device='cuda'); print(float((x + 1).sum()))"],
+        capture_output=True, text=True, timeout=180, env=env)
+    said = probe.stdout + probe.stderr
+    if probe.returncode != 0 and SANITIZER_UNSUPPORTED in said:
+        log("static", f"compute-sanitizer: {SANITIZER_UNSUPPORTED!r} (exit "
+                      f"{probe.returncode}); the kernel checks are left out")
+        return {"present": True, "ran": False,
+                "skipped": SANITIZER_UNSUPPORTED}
+    check(probe.returncode == 0,
+          f"compute-sanitizer --tool memcheck on a one-line torch program: "
+          f"exit {probe.returncode}\n{said[-3000:]}")
+    errors = {}
+    for tool in SANITIZER_TOOLS:
+        r = subprocess.run(
+            [str(SANITIZER), "--tool", tool, "--error-exitcode", "9",
+             sys.executable, str(ROOT / "chip_smoke.py"),
+             "--sanitizer-child"],
+            capture_output=True, text=True, timeout=300, env=env)
+        check(r.returncode == 0 and "seven kernels ran" in r.stdout,
+              f"compute-sanitizer --tool {tool}: exit {r.returncode}\n"
+              f"{r.stdout[-3000:]}")
+        errors[tool] = 0
+        log("static", f"compute-sanitizer --tool {tool}: 0 errors")
+    return {"present": True, "ran": True, "errors": errors}
+
+
+def static_checks(device) -> dict:
+    t0 = time.perf_counter()
+    hopper_limits_on_card(device)
+    rows = launch_plans_on_card(device)
+    syncs = suite_on_card(device)
+    san = sanitizer_checks()
+    log("static", f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": rows, "syncs": syncs, "sanitizer": san}
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--sanitizer-child"]:
+        return sanitizer_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3178,6 +3396,7 @@ def main() -> int:
         for row in kernels:
             row["gang_launches"] = gangs["launches"][f"N=2 {GANG_MAIN}"][
                 row["name"]]
+        static = static_checks(device)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3186,7 +3405,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()},
+        "sanitizer": static["sanitizer"]}))
     return 0
 
 

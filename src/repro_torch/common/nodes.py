@@ -25,8 +25,9 @@ Gloo's support for CUDA tensors differs between collectives and builds, so
 a gang stages every collective through the host explicitly: a copy into
 pinned memory, the gloo call on CPU tensors, and the copy back. The
 group's :class:`ExchangeClock` adds up each part's host-clock time and the
-bytes handed to gloo. With one process none of this runs: every function
-is exactly the tensor op it was.
+bytes handed to gloo, each element at its dtype's width in
+:data:`WIRE_BYTES`. With one process none of this runs: every function is
+exactly the tensor op it was.
 """
 
 from __future__ import annotations
@@ -37,6 +38,20 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+
+# Bytes of one element handed to gloo, by dtype: the table ExchangeClock's
+# bytes (and the bench's gang rows, which report them) count with. The
+# static analysis (CL004) checks every collective's dtype is in it.
+WIRE_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int8: 1, torch.int16: 2,
+              torch.float16: 2, torch.bfloat16: 2, torch.int32: 4,
+              torch.float32: 4, torch.int64: 8, torch.float64: 8}
+
+
+def wire_bytes(t: torch.Tensor) -> int:
+    """The bytes ``t`` takes on the wire (its dtype must be in
+    :data:`WIRE_BYTES`)."""
+    return t.numel() * WIRE_BYTES[t.dtype]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -185,8 +200,7 @@ def _gloo(call, group: NodeGroup, nbytes: int) -> None:
 
 def _all_reduce_sum(x: torch.Tensor, group: NodeGroup) -> torch.Tensor:
     host = _to_host(x, group.clock)      # x is the caller's own sum
-    _gloo(lambda: dist.all_reduce(host), group,
-          host.numel() * host.element_size())
+    _gloo(lambda: dist.all_reduce(host), group, wire_bytes(host))
     return _to_device(host, x.device, group.clock)
 
 
@@ -199,8 +213,7 @@ def _gather_rows(x: torch.Tensor, group: NodeGroup) -> torch.Tensor:
     """``[local, ...]`` on every process -> ``[P, ...]`` in node order."""
     host = _to_host(x, group.clock)
     parts = [_host_like(host) for _ in range(group.world)]
-    _gloo(lambda: dist.all_gather(parts, host), group,
-          host.numel() * host.element_size())
+    _gloo(lambda: dist.all_gather(parts, host), group, wire_bytes(host))
     return _to_device(torch.cat(parts), x.device, group.clock)
 
 
@@ -217,7 +230,7 @@ def all_to_all(buckets: torch.Tensor,
     host = _to_host(send, group.clock)
     recv = _host_like(host)
     _gloo(lambda: dist.all_to_all_single(recv, host), group,
-          host.numel() * host.element_size())
+          wire_bytes(host))
     recv = _to_device(recv, buckets.device, group.clock)
     # [world (sender rank), local (sender), local (mine), ...]
     return recv.reshape(group.nodes, loc, *tail).transpose(0, 1).contiguous()
@@ -275,5 +288,5 @@ def global_count(x: torch.Tensor, group: Optional[NodeGroup] = None) -> int:
     if group is None or not group.distributed:
         return total
     t = torch.tensor([total], dtype=torch.int64)
-    _gloo(lambda: dist.all_reduce(t), group, 8)
+    _gloo(lambda: dist.all_reduce(t), group, wire_bytes(t))
     return int(t[0])

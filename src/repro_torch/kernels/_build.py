@@ -82,6 +82,22 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+def kernel_attributes(lib: ctypes.CDLL, kernels: tuple) -> dict:
+    """``{kernel: {static_smem, registers, max_threads, max_dynamic_smem}}``
+    as the card reports them (``cudaFuncGetAttributes``, through the
+    source's ``kernel_attributes`` entry point), for the kernels of one
+    source in its order."""
+    out = (ctypes.c_int * 4)()
+    attrs = {}
+    for k, name in enumerate(kernels):
+        err = lib.kernel_attributes(k, ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"kernel_attributes({name}): CUDA error {err}")
+        attrs[name] = dict(zip(("static_smem", "registers", "max_threads",
+                                "max_dynamic_smem"), out))
+    return attrs
+
+
 def bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
     """Declare each entry point's arguments ("p" pointer, "q" int64, "i"
     int32, in order) and its int32 result."""

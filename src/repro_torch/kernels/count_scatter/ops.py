@@ -14,6 +14,8 @@ nodes: ``words`` and ``dest`` are int32 ``[B, n]``, one row per node.
 - ``ref.count_scatter_ref`` (stable argsort) is the independent oracle.
 
 Each CUDA wrapper counts its launches in ``<wrapper>.launches``.
+``launch_plan`` mirrors the C entry points' launches for the static
+analysis (``repro_torch.kernels._launch``).
 """
 
 from __future__ import annotations
@@ -23,11 +25,30 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import bind, library
+from repro_torch.kernels._build import bind, kernel_attributes, library
+from repro_torch.kernels._launch import Launch, dim3
 
 TILE = 4096          # records per tile; equals kTile in csrc/count_scatter.cu
+THREADS = 256        # kThreads: a block of either kernel
+WARPS = THREADS // 32
 MAX_DESTS = 1025     # P + 1 destination counters per warp fit in shared
                      # memory (K2 opts in to 72 KB at 1025)
+MAX_ROWS = 65535     # rows are the grid's y dimension
+SMEM_DEFAULT = 48 * 1024
+
+# the source's kernels, in the order of its kernel_attributes entry point
+KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel")
+# static shared memory of each kernel (both use dynamic shared memory
+# only); chip_smoke.py holds this table against the card's
+STATIC_SMEM_BYTES = {"count_tiles_kernel": 0, "scatter_tiles_kernel": 0}
+# the index type each kernel forms its offsets into an array in (the
+# source's arithmetic at csrc/count_scatter.cu:88-97 and :115-237)
+INDEX_TYPES = {
+    "count_tiles_kernel": {"dest": "int64", "counts": "int64"},
+    "scatter_tiles_kernel": {"words": "int64", "dest": "int64",
+                             "base": "int64", "out (in a row)": "int32",
+                             "held (dest << 16 | rank)": "int32"},
+}
 
 
 def _check_rows(name: str, *tensors: torch.Tensor) -> None:
@@ -46,6 +67,9 @@ def _check_rows(name: str, *tensors: torch.Tensor) -> None:
     if first.shape[1] >= 2**31:
         raise ValueError(f"{name}: rows of {first.shape[1]} records exceed "
                          f"int32 offsets")
+    if first.shape[0] > MAX_ROWS:
+        raise ValueError(f"{name}: {first.shape[0]} rows exceed the grid's "
+                         f"{MAX_ROWS} y blocks")
 
 
 def _check_dests(name: str, num_dests: int, device: torch.device) -> None:
@@ -58,7 +82,7 @@ def _check_dests(name: str, num_dests: int, device: torch.device) -> None:
 
 # argument kinds of each C entry point, as declared in csrc/count_scatter.cu
 SIGNATURES = {"count_tiles": "ppqiiip", "scatter_tiles": "ppppqiiip",
-              "count_scatter_tile": ""}
+              "count_scatter_tile": "", "kernel_attributes": "ip"}
 
 
 @functools.cache
@@ -68,6 +92,11 @@ def _lib() -> ctypes.CDLL:
         raise RuntimeError("csrc/count_scatter.cu was built with another "
                            "record tile than ops.TILE")
     return lib
+
+
+def attributes() -> dict:
+    """What the card reports for each kernel (``_build.kernel_attributes``)."""
+    return kernel_attributes(_lib(), KERNELS)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -81,6 +110,78 @@ def _stream(t: torch.Tensor) -> int:
 
 def num_tiles(n: int) -> int:
     return -(-n // TILE)
+
+
+def scatter_smem_bytes(num_dests: int) -> int:
+    """K2's dynamic shared memory (``scatter_smem_bytes`` in the source):
+    staged dests and words, the per-warp counters, the tile's bases and
+    runs, the block scan's warp sums."""
+    return 4 * (2 * TILE + WARPS * num_dests + 2 * num_dests + WARPS)
+
+
+def count_tiles_launch(rows: int, n: int, num_dests: int) -> list:
+    """``count_tiles`` (csrc/count_scatter.cu:243-251): no launch for an
+    empty output, as the wrapper returns first."""
+    t = num_tiles(n)
+    if rows * t * num_dests == 0:
+        return []
+    return [Launch(
+        "count_tiles_kernel", dim3(t, rows), dim3(THREADS), 4 * num_dests,
+        offsets={"dest": rows * n - 1, "counts": rows * t * num_dests - 1},
+        covers=((n, TILE), (rows, 1)))]
+
+
+def scatter_tiles_launch(rows: int, n: int, num_dests: int) -> list:
+    """``scatter_tiles`` (csrc/count_scatter.cu:253-268): the opt-in above
+    48 KB, then the launch."""
+    t = num_tiles(n)
+    if rows * n == 0:
+        return []
+    smem = scatter_smem_bytes(num_dests)
+    return [Launch(
+        "scatter_tiles_kernel", dim3(t, rows), dim3(THREADS), smem,
+        opt_in=smem if smem > SMEM_DEFAULT else None,
+        offsets={"words": rows * n - 1, "dest": rows * n - 1,
+                 "base": rows * t * num_dests - 1,
+                 "out (in a row)": n - 1,
+                 "held (dest << 16 | rank)":
+                     ((num_dests - 1) << 16) | (TILE // WARPS - 1)},
+        covers=((n, TILE), (rows, 1)))]
+
+
+def launch_plan(rows: int, n: int, num_partitions: int) -> list:
+    """The launches of ``count_scatter`` on int32 ``[rows, n]`` rows to
+    ``num_partitions + 1`` destinations: K1, then K2. Raises ``ValueError``
+    where the wrappers refuse the shape."""
+    num_dests = num_partitions + 1
+    if n >= 2**31 or rows > MAX_ROWS:
+        raise ValueError(f"count_scatter: [{rows}, {n}] rows are past the "
+                         f"kernels' int32 offsets or {MAX_ROWS} grid rows")
+    _check_dests("count_scatter", num_dests, torch.device("cuda"))
+    return (count_tiles_launch(rows, n, num_dests)
+            + scatter_tiles_launch(rows, n, num_dests))
+
+
+def analysis_cases() -> list:
+    """The shapes the kernel passes check ``launch_plan`` at: JAX's case
+    (one exchange's ordering at P = 4, the P rows at once), the main
+    path's ``[8, 2^23]`` at 9 destinations, the wrappers' bound of 1025
+    destinations, the longest row and the most rows they take."""
+    def case(name, rows, n, parts):
+        def run(device):
+            words = torch.zeros(rows, n, dtype=torch.int32, device=device)
+            count_scatter(words, torch.zeros_like(words), parts)
+
+        return {"name": f"count_scatter/{name}", "source": "count_scatter",
+                "shape": (rows, n, parts),
+                "plan": lambda sms: launch_plan(rows, n, parts), "run": run,
+                "index_types": INDEX_TYPES, "static_smem": STATIC_SMEM_BYTES}
+
+    return [case("shard_exchange", 4, 1 << 16, 4),
+            case("main_path", 8, 1 << 23, 8),
+            case("max_dests", 8, 1 << 23, MAX_DESTS - 1),
+            case("longest_row", 1, 2**31 - 1, 8),
+            case("max_rows", MAX_ROWS, TILE, 8)]
 
 
 def count_tiles_plain(dest: torch.Tensor, num_dests: int) -> torch.Tensor:

@@ -177,3 +177,22 @@ extern "C" int windowed_ratio(const int* hist, float* rho, int* cum_total,
       hist, rho, cum_total, cum_marked, num_sites, num_weeks, vec);
   return (int)cudaGetLastError();
 }
+
+// What the card reports for kernel k of this source, in the order of its
+// ops.py KERNELS: out = {static shared bytes, registers a thread, largest
+// block, largest dynamic shared bytes} (cudaFuncGetAttributes). For the
+// static analysis, which holds its launch plans against the card.
+extern "C" int kernel_attributes(int k, int* out) {
+  const void* const fns[] = {
+      (const void*)windowed_ratio_kernel};
+  if (k < 0 || k >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
+}

@@ -359,3 +359,23 @@ extern "C" int masked_window_ratio(const int* hist, const unsigned char* nmask,
       num_queries, aligned);
   return (int)cudaGetLastError();
 }
+
+// What the card reports for kernel k of this source, in the order of its
+// ops.py KERNELS: out = {static shared bytes, registers a thread, largest
+// block, largest dynamic shared bytes} (cudaFuncGetAttributes). For the
+// static analysis, which holds its launch plans against the card.
+extern "C" int kernel_attributes(int k, int* out) {
+  const void* const fns[] = {
+      (const void*)mask_runs_kernel,
+      (const void*)masked_window_ratio_kernel};
+  if (k < 0 || k >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
+}

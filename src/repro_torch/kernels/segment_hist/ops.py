@@ -34,6 +34,8 @@ Both count ``mark > 0``, as ``segment_hist_ref`` does; the JAX Pallas
 ``_kernel`` adds the raw mark value, which agrees only for marks in {0, 1}
 (ROADMAP.md Queue 3). Histogram launches are counted in
 ``segment_hist.launches`` and ``segment_hist_packed_words.launches``.
+``launch_plan`` and ``packed_launch_plan`` mirror the C entry points'
+launches for the static analysis (``repro_torch.kernels._launch``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from repro_torch.common.types import (
     WEEKS_PER_YEAR,
     unpack_site_week_mark,
 )
-from repro_torch.kernels._build import bind, library
+from repro_torch.kernels._build import bind, kernel_attributes, library
+from repro_torch.kernels._launch import H100_SMS, Launch, cdiv, dim3
 from repro_torch.kernels.segment_hist.ref import segment_hist_ref
 
 _INT32_MIN, _INT32_MAX = -2**31, 2**31 - 1
@@ -65,7 +68,29 @@ TABLE_SLOTS = 1024           # the block's site -> tile slot table
 STATIC_SMEM = 48 * 1024      # shared memory a block gets without opt-in
 BLOCKS_PER_SM = 2
 MIN_PER_CELL = 2             # records a tiled cell should get a block-row
-H100_SMS = 132               # SMs of the geometry of a CPU tensor
+SELECT_THREADS = 1024        # threads of the hot-site block
+SELECT_SMEM = 16384 * 8      # its sample table: 16,384 int2 slots
+CHUNK = 2 * UNROLL * THREADS  # records a histogram block takes at a time
+
+# static shared memory of each kernel, the same in both sources (the hot-
+# site block's candidate lists and count, the histogram block's next
+# chunk, as ptxas lays them out); chip_smoke.py holds this table against
+# the card's
+STATIC_SMEM_BYTES = {"hot_sites_kernel": 2064, "segment_hist_kernel": 16,
+                     "packed_hist_kernel": 16}
+# each source's kernels, in the order of its kernel_attributes entry point
+KERNELS = {"segment_hist": ("hot_sites_kernel", "segment_hist_kernel"),
+           "segment_hist_packed": ("hot_sites_kernel", "packed_hist_kernel")}
+# the index type each kernel forms its offsets into an array in
+# (csrc/segment_hist.cu:88-239, csrc/segment_hist_packed.cu:87-239); the
+# chunk counter is an unsigned int
+INDEX_TYPES = {
+    "hot_sites_kernel": {"records": "int64", "hot": "int64"},
+    "segment_hist_kernel": {"records": "int64", "hist": "int64",
+                            "tile": "int32", "chunk counter": "uint32"},
+    "packed_hist_kernel": {"records": "int64", "hist": "int64",
+                           "tile": "int32", "chunk counter": "uint32"},
+}
 
 
 class HistGeometry(NamedTuple):
@@ -104,6 +129,95 @@ def hist_geometry(n: int, num_weeks: int, sm_count: int) -> HistGeometry:
                         8 * TABLE_SLOTS + 8 * hot_capacity * num_weeks)
 
 
+def _hist_launches(kernel: str, rows: int, n: int, num_sites: int,
+                   num_weeks: int, sm_count: int) -> list:
+    """The hot-site launch and the histogram launch of one entry point
+    (``launch_hot_sites`` and ``launch_tiled`` in either source): none
+    for an empty input, as the entry points return first."""
+    if rows * n == 0:
+        return []
+    geo = hist_geometry(n, num_weeks, sm_count)
+    records = rows * n - 1
+    return [
+        Launch("hot_sites_kernel", dim3(rows), dim3(SELECT_THREADS),
+               SELECT_SMEM, opt_in=SELECT_SMEM,
+               offsets={"records": records, "hot": rows * HOT_LIST - 1}),
+        Launch(kernel, dim3(geo.blocks), dim3(THREADS), geo.smem_bytes,
+               offsets={"records": records,
+                        "hist": rows * num_sites * num_weeks * 2 - 1,
+                        "tile": geo.hot_capacity * num_weeks * 2 - 1,
+                        "chunk counter": cdiv(n, CHUNK) * rows
+                        + geo.blocks})]
+
+
+def launch_plan(rows: int, n: int, *, num_sites: int,
+                num_weeks: int = WEEKS_PER_YEAR, sm_count: int) -> list:
+    """The launches of ``segment_hist`` (K4) on ``[rows, n]`` columns on a
+    card of ``sm_count`` SMs (csrc/segment_hist.cu:303-342)."""
+    if num_sites < 1 or num_weeks < 1:
+        raise ValueError(f"segment_hist: num_sites={num_sites}, "
+                         f"num_weeks={num_weeks}")
+    return _hist_launches("segment_hist_kernel", rows, n, num_sites,
+                          num_weeks, sm_count)
+
+
+def packed_launch_plan(rows: int, length: int, *, num_sites_local: int,
+                       num_partitions: int,
+                       num_weeks: int = WEEKS_PER_YEAR,
+                       sm_count: int) -> list:
+    """The launches of ``segment_hist_packed_words`` (K3) on ``[rows,
+    length]`` words (csrc/segment_hist_packed.cu:300-334)."""
+    if rows > num_partitions or num_sites_local < 1 \
+            or not 1 <= num_weeks <= 64:
+        raise ValueError(f"segment_hist_packed_words: {rows} rows of "
+                         f"{num_partitions} nodes, num_sites_local="
+                         f"{num_sites_local}, num_weeks={num_weeks}")
+    return _hist_launches("packed_hist_kernel", rows, length,
+                          num_sites_local, num_weeks, sm_count)
+
+
+def analysis_cases() -> list:
+    """The shapes the kernel passes check the plans at: JAX's two cases
+    (K4 over one node's 2^16 records into the B preset's 100,000 sites, K3
+    over the words of P = 4 nodes), the main path's (K3 over a counting
+    round's ``[8, 2^24]`` words, K4 over the other backends' ``[8,
+    2^23]``), and the longest rows (2^31 - 1 records)."""
+    def k4(name, rows, n, sites):
+        def run(device):
+            col = torch.zeros(rows, n, dtype=torch.int32, device=device)
+            valid = torch.zeros_like(col, dtype=torch.bool)
+            segment_hist(col, col, col, valid, num_sites=sites)
+
+        return {"name": f"segment_hist/{name}", "source": "segment_hist",
+                "shape": (rows, n, sites),
+                "plan": lambda sms: launch_plan(rows, n, num_sites=sites,
+                                               sm_count=sms),
+                "run": run, "index_types": INDEX_TYPES,
+                "static_smem": STATIC_SMEM_BYTES}
+
+    def k3(name, rows, length, s_local, parts):
+        def run(device):
+            segment_hist_packed_words(
+                torch.zeros(rows, length, dtype=torch.int32, device=device),
+                num_sites_local=s_local, num_partitions=parts)
+
+        return {"name": f"segment_hist/{name}",
+                "source": "segment_hist_packed",
+                "shape": (rows, length, s_local, parts),
+                "plan": lambda sms: packed_launch_plan(
+                    rows, length, num_sites_local=s_local,
+                    num_partitions=parts, sm_count=sms),
+                "run": run, "index_types": INDEX_TYPES,
+                "static_smem": STATIC_SMEM_BYTES}
+
+    return [k4("b_preset", 1, 1 << 16, 100_000),
+            k3("packed_words", 4, 1 << 16, 25_000, 4),
+            k3("main_path", 8, 1 << 24, 12_500, 8),
+            k4("other_backends", 8, 1 << 23, 100_000),
+            k4("longest_row", 1, 2**31 - 1, 100_000),
+            k3("packed_longest_row", 1, 2**31 - 1, 100_000, 1)]
+
+
 @functools.cache
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
@@ -133,10 +247,12 @@ def _check(err: int, name: str) -> None:
 # argument kinds of each C entry point, as declared in its source
 PACKED_SIGNATURES = {"packed_hist": "ppppqiiiiiiiiip",
                      "packed_hist_hot_sites": "ppqiiiiiiip",
-                     "packed_hist_tiled": "ppppqiiiiiiip"}
+                     "packed_hist_tiled": "ppppqiiiiiiip",
+                     "kernel_attributes": "ip"}
 HIST_SIGNATURES = {"segment_hist": "pppppppqiiiiiiiip",
                    "segment_hist_hot_sites": "ppppqiiiiiip",
-                   "segment_hist_tiled": "pppppppqiiiiiip"}
+                   "segment_hist_tiled": "pppppppqiiiiiip",
+                   "kernel_attributes": "ip"}
 
 
 @functools.cache
@@ -147,6 +263,13 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _hist_lib() -> ctypes.CDLL:
     return bind(library("segment_hist"), HIST_SIGNATURES)
+
+
+def attributes(source: str) -> dict:
+    """What the card reports for each kernel of ``source``
+    (``_build.kernel_attributes``)."""
+    lib = _hist_lib() if source == "segment_hist" else _lib()
+    return kernel_attributes(lib, KERNELS[source])
 
 
 def _work(t: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,11 @@ Two ingest sources, as in ``malstone_run_streaming``:
 returns a ticket at once; ``wait`` copies the answers to the host, which
 is where the host waits for the device. The P nodes are the leading axis
 of the state on one device: the constructor takes ``nodes=`` where the
-JAX service takes a mesh. The JAX service's ``ingest_program`` and
-``snapshot_program`` hand its jitted programs to the JAX static analysis;
-they have no counterpart here (ROADMAP.md Queue 1, item 8).
+JAX service takes a mesh. ``ingest_program(k)`` and ``snapshot_program()``
+are the counterparts of the JAX service's jitted programs: plain ``state
+-> state`` (and ``state -> (histogram, stats)``) callables that the
+service itself runs and that ``repro_torch.analysis``'s driver passes run
+on a state of their own.
 """
 
 from __future__ import annotations
@@ -205,21 +207,7 @@ class MalStoneService:
         node (node d folds chunks ``[d * cpn + done, + k)``), so any
         schedule covering all ``cpn`` chunks equals the one-shot streaming
         run."""
-        if self.cpd is None:
-            raise ValueError(
-                "this service was built without seed=/cfg=/num_chunks=; "
-                "seed-mode ingest is unavailable (use ingest/ingest_log)")
-        if k <= 0:
-            raise ValueError(f"k must be > 0, got {k}")
-        done = self.chunks_folded
-        if done + k > self.cpd:
-            raise ValueError(
-                f"ingest_chunks({k}) overruns the configured stream: "
-                f"{done} of {self.cpd} per-node chunks already folded")
-        first = [d * self.cpd + done for d in range(self.parts)]
-        self._state = fold_chunk_range(self._state, self.seed, self.cfg,
-                                       first, k, self.chunk_records,
-                                       **self._fold_kw)
+        self._state = self.ingest_program(k)(self._state)
         self._records_ingested += k * self.parts * self.chunk_records
         self._ingest_calls += 1
         self._dirty = True
@@ -229,9 +217,7 @@ class MalStoneService:
         """The resident snapshot, re-made if an ingest landed since the
         last one; queries read this cached device histogram."""
         if self._dirty or self._hist is None:
-            hist, stats = snapshot(self._state, backend=self.backend,
-                                   s_pad=self.s_pad,
-                                   num_weeks=self.num_weeks)
+            hist, stats = self.snapshot_program()(self._state)
             _raise_if_exhausted(stats)
             self._last_shuffle_stats = stats
             self._hist = hist[:self.num_sites].contiguous()
@@ -287,6 +273,42 @@ class MalStoneService:
     def query(self, specs: Sequence[QuerySpec]) -> list:
         """``wait(submit(specs))``."""
         return self.wait(self.submit(specs))
+
+    # ---------------------------------------------------- introspection
+    def ingest_program(self, k: int = 1):
+        """Seed-mode ingest as a plain ``state -> state`` callable: folds
+        the next ``k`` chunks of every node after the state's cursor (JAX
+        ``ingest_program``'s counterpart). ``ingest_chunks`` runs it on the
+        resident state; pair it with :meth:`zero_state_host` (moved to the
+        service's device) to run it on another."""
+        if self.cpd is None:
+            raise ValueError(
+                "this service was built without seed=/cfg=/num_chunks=; "
+                "seed-mode ingest is unavailable (use ingest/ingest_log)")
+        if k <= 0:
+            raise ValueError(f"k must be > 0, got {k}")
+
+        def program(state: HistogramState) -> HistogramState:
+            done = state.chunks_folded
+            if done + k > self.cpd:
+                raise ValueError(
+                    f"ingest_chunks({k}) overruns the configured stream: "
+                    f"{done} of {self.cpd} per-node chunks already folded")
+            first = [d * self.cpd + done for d in range(self.parts)]
+            return fold_chunk_range(state, self.seed, self.cfg, first, k,
+                                    self.chunk_records, **self._fold_kw)
+
+        return program
+
+    def snapshot_program(self):
+        """The snapshot as a plain ``state -> (histogram [s_pad, W, 2],
+        ShuffleStats or None)`` callable (JAX ``snapshot_program``'s
+        counterpart); the state stays as it is."""
+        def program(state: HistogramState):
+            return snapshot(state, backend=self.backend, s_pad=self.s_pad,
+                            num_weeks=self.num_weeks)
+
+        return program
 
     # ------------------------------------------------------- accounting
     def zero_state_host(self) -> HistogramState:

@@ -1088,3 +1088,62 @@ def test_gang_on_the_card_equals_one_process(cuda_device, tmp_path):
                        "segment_hist.packed"]) >= 2
         assert int(got["P4/seed_mapreduce_counting/launches_"
                        "powerlaw_sample"]) == 2 * 2 * 2
+
+
+# ------------------------------------------------- the static analysis
+def _analysis_case_names():
+    from repro_torch.analysis.kernel_passes import kernel_analysis_cases
+
+    return [c["name"] for c in kernel_analysis_cases()]
+
+
+@pytest.fixture(scope="module")
+def card_launch_records():
+    """Every analysis case's launch records, taken once in a fresh process:
+    in this one, after the tests above, the profiler drops the first
+    kernel records of each session."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.analysis.kernel_passes import card_launches_in_child
+
+    return card_launches_in_child()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _analysis_case_names())
+def test_launch_plan_equals_the_profilers_records(cuda_device, name,
+                                                 card_launch_records):
+    """Each analysis case's wrapper, run once under the profiler, launches
+    what its ``launch_plan`` says: kernels in order, grid, block, static
+    plus dynamic shared memory, and the registers and static shared bytes
+    ``cudaFuncGetAttributes`` reports (the ``ops.py`` table)."""
+    from repro_torch.analysis import kernel_passes as kp
+
+    case = {c["name"]: c for c in kp.kernel_analysis_cases()}[name]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kp.compare_with_card(case, card_launch_records[name],
+                                kp.card_attributes(case["source"]),
+                                sms) == []
+
+
+@pytest.mark.cuda
+def test_driver_family_on_the_card_is_within_its_budgets(cuda_device):
+    """Every driver on the card: no raise, no dtype change, host syncs on
+    CUDA tensors within the budget its target declares."""
+    from repro_torch.analysis import AnalysisContext, run_passes
+
+    ctx = AnalysisContext(device=cuda_device)
+    assert run_passes(["drivers"], ctx) == []
+    assert all(r.card_syncs is not None
+               for r in ctx.cache["driver_runs"].values())
+
+
+@pytest.mark.cuda
+def test_collective_family_on_the_card_is_clean(cuda_device):
+    """The exchanges' recorded collectives on the card, and a gang of 2
+    sharing it, as ``python -m repro_torch.analysis`` runs them by
+    default."""
+    from repro_torch.analysis import AnalysisContext, run_passes
+
+    ctx = AnalysisContext(device=cuda_device)
+    assert run_passes(["collectives"], ctx) == []

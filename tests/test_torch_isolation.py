@@ -38,8 +38,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_port_has_no_bare_asserts():
-    """The LN001 rule of ``repro.analysis.lint``, over the port."""
-    from repro.analysis.lint import iter_bare_asserts
+    """The LN001 rule of the port's own ``repro_torch.analysis.lint``,
+    over the port (its analysis package included)."""
+    from repro_torch.analysis.lint import iter_bare_asserts
 
     assert iter_bare_asserts(ROOT / "src" / "repro_torch") == []
 
