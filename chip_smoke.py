@@ -183,26 +183,57 @@
    host-sync budget; prints each driver's count and the card's. Then
    ``compute-sanitizer`` (beside nvcc): a one-line torch program under
    its memcheck first; if the tool says "Device not supported", the
-   kernel checks are left out and the last line says so; any other
+   kernel checks are left out and the sanitizer line says so; any other
    failure fails the script; else the seven kernels run at small shapes
    in a child (``chip_smoke.py --sanitizer-child``) under memcheck,
    racecheck, synccheck and initcheck, with zero errors required.
 
+13. The trainer (``repro_torch.runtime``, ``data``, ``optim``): (a) at
+   the JAX launcher's defaults (``--data malgen --batch 8 --seq-len
+   256``, vocabulary 256, the pipeline's MalGenConfig) the one-parameter
+   toy step of ``tests/test_runtime.py`` runs 80 steps (checkpoint every
+   10, doctor every 8, 8 hosts) while host 5 fails every step it serves
+   past step 8: it ends at step 80 with host 5 blocklisted and absent
+   from the last 16 steps, K7 launched once a doctor run and K6 once a
+   batch plus once for the marked stream (counts set to 0 just before
+   the pipeline is built and read after the run), no other kernel; K7 on
+   the doctor's ``[8, 16, 2]`` histogram and K6 at a batch's and the
+   marked stream's draws equal their plain versions, the final diagnosis
+   on the card equals the CPU's; on a fake clock (2^-10 s a call) the
+   same run on the card and on the CPU over the card's batches give equal
+   histories, retries, restarts and blocklists and losses within rtol
+   1e-6; one card batch equals the CPU path's on the card's draws and
+   seed tables. Prints steps/s, doctor ms and the kernels' ms at these
+   shapes. (b) A run of 20 steps dropped and resumed from its checkpoint
+   equals an uninterrupted run of 25 over steps 20-24. (c) AdamW at one
+   llama3-8b decoder layer's width (218,112,000 parameters, seeded on the
+   card): 3 updates with f32 and with bf16 moments, each against the
+   CPU's update of the same inputs (params and f32 moments rtol 1e-5,
+   atol 1e-6; bf16 moments within one bf16 ulp, plus 2^-20 of the
+   magnitude of the terms the update summed; ``step`` exact), then the
+   ms of one update (CUDA events, median of 5) against its byte bound at
+   3.35 TB/s; two rounds of ``tree_ef_compress`` bit-equal to the CPU
+   (``q``, ``scale``, estimate, error); peak device memory.
+
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
 phase 10's two fault-free runs, mapreduce and streams, ``gang_launches``
-from rank 0 of phase 11's mapreduce gang of 2), then the card's name and
-power limit as nvidia-smi gives them, then ``{"ok": true, "device": ...,
-"sanitizer": ...}`` as the last line. Exits non-zero, printing no result,
-without a CUDA device or when the repository's ``src/`` is not beside
-this file; any failed check exits non-zero.
+from rank 0 of phase 11's mapreduce gang of 2, ``trainer_launches`` from
+phase 13's real-clock run), then ``{"sanitizer": ...}`` (what phase 12's
+compute-sanitizer did), then the card's name and power limit as
+nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the last
+line. Exits non-zero, printing no result, without a CUDA device or when
+the repository's ``src/`` is not beside this file; any failed check exits
+non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -266,6 +297,24 @@ GANG_CASES = {1: (GANG_MAIN,),
                   "seed_mapreduce_counting_overlap_off"),
               4: (GANG_MAIN,)}
 GANG_TIMEOUT = 300
+# phase 13: the trainer port at the JAX launcher's defaults
+# (launch/train.py:32-40: --data malgen --batch 8 --seq-len 256) with
+# tests/test_runtime.py's bad-host run (host 5 fails every step it serves
+# past step 8), and AdamW and int8 error feedback at one llama3-8b decoder
+# layer's width (configs/llama3_8b.py:15-21: d_model 4096, 32 x 128 query
+# heads, 8 x 128 kv heads, d_ff 14336)
+TRAIN_DATA = dict(source="malgen", global_batch=8, seq_len=256,
+                  vocab_size=256)
+TRAIN_RUN = dict(total_steps=80, ckpt_every=10, doctor_every=8,
+                 telemetry_hosts=8)
+TRAIN_BAD_HOST, TRAIN_BAD_AFTER = 5, 8
+TRAIN_CHECK_STEP = 37
+LLAMA_LAYER = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+               "wo": (4096, 4096), "w_gate": (4096, 14336),
+               "w_up": (4096, 14336), "w_down": (14336, 4096),
+               "attn_norm": (4096,), "mlp_norm": (4096,)}
+LLAMA_LAYER_PARAMS = 218_112_000
+ADAMW_STEPS, ADAMW_TURNS, ADAMW_SEED = 3, 5, 26
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
 GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
 FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
@@ -3348,6 +3397,471 @@ def static_checks(device) -> dict:
     return {"launches": rows, "syncs": syncs, "sanitizer": san}
 
 
+# ------------------------------------------------------------- phase 13
+def toy_step(state, batch):
+    """The one-parameter model of tests/test_runtime.py:16-22, in torch."""
+    w, opt_step = state
+    x = batch["tokens"].to(torch.float32)
+    loss = torch.mean((x.mean() - w) ** 2)
+    w = w - 0.1 * 2 * (w - x.mean())
+    return (w, opt_step + 1), {"loss": loss}
+
+
+def bad_host_hook(step, host):
+    """tests/test_runtime.py's host-tied fault: the bad host fails every
+    step it serves past step 8."""
+    if host == TRAIN_BAD_HOST and step > TRAIN_BAD_AFTER:
+        raise RuntimeError(f"flaky host {TRAIN_BAD_HOST}")
+
+
+class FakeClock:
+    """``time`` for the trainer module: ``monotonic`` adds 2^-10 s a call,
+    so every step lasts exactly as long on the card as on the CPU and the
+    straggler test cannot tell them apart."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def monotonic(self) -> float:
+        self.calls += 1
+        return self.calls / 1024.0
+
+
+@contextlib.contextmanager
+def trainer_patched(device, fake_clock: bool):
+    """Count and time (host clock, to the device's end) each NodeDoctor
+    diagnosis the trainer runs, and give it the fake clock if asked;
+    yields the list of diagnosis ms."""
+    from repro_torch.runtime import trainer as trainer_mod
+
+    doctor_ms = []
+    real_diagnose, real_time = trainer_mod.diagnose, trainer_mod.time
+
+    def diagnose(*args, **kw):
+        t0 = time.perf_counter()
+        rep = real_diagnose(*args, **kw)
+        sync(rep.alarm.device)
+        doctor_ms.append((time.perf_counter() - t0) * 1e3)
+        return rep
+
+    trainer_mod.diagnose = diagnose
+    if fake_clock:
+        trainer_mod.time = FakeClock()
+    try:
+        yield doctor_ms
+    finally:
+        trainer_mod.diagnose, trainer_mod.time = real_diagnose, real_time
+
+
+def make_trainer(device, batch_fn, ckpt_dir, hook, **kw):
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = TrainConfig(ckpt_dir=str(ckpt_dir), **dict(TRAIN_RUN, **kw))
+    state = (torch.zeros((), device=device),
+             torch.zeros((), dtype=torch.int32, device=device))
+    return Trainer(cfg, toy_step, state, batch_fn, fault_hook=hook,
+                   device=device)
+
+
+def same_report(name: str, got, want, exact_losses: bool) -> float:
+    """History steps and hosts, retries, restarts, final step and
+    blocklist equal; losses equal or within rtol 1e-6. Returns the largest
+    loss difference."""
+    for key in ("final_step", "restarts", "retries", "blocklist"):
+        check(got[key] == want[key],
+              f"{name}: {key} {got[key]} vs {want[key]}")
+    sh = [(h["step"], h["host"]) for h in got["history"]]
+    check(sh == [(h["step"], h["host"]) for h in want["history"]],
+          f"{name}: the histories' steps and hosts differ")
+    diff = 0.0
+    for a, b in zip(got["history"], want["history"]):
+        d = abs(a["loss"] - b["loss"])
+        diff = max(diff, d)
+        check(d == 0.0 if exact_losses else d <= 1e-6 * abs(b["loss"]),
+              f"{name}: step {a['step']} loss {a['loss']!r} vs "
+              f"{b['loss']!r}")
+    return diff
+
+
+def trainer_doctor_and_k6(tr, pipe, device, card: str) -> dict:
+    """The path's kernels against their plain versions at its shapes: K7
+    on the trainer's ``[hosts, buckets, 2]`` histogram, K6 at a batch's
+    unmarked draws and at the marked stream's; and the trainer's final
+    diagnosis on the card against the CPU's (rho and CUSUM bits, alarm,
+    ranking)."""
+    import copy
+
+    from repro_torch.core.nodedoctor import diagnose
+    from repro_torch.core.spm import site_week_histogram
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+    from repro_torch.kernels.windowed_ratio import ops as wr
+    from repro_torch.malgen.seeding import draw_events
+
+    cfg = tr.cfg
+    hist = site_week_histogram(tr.telemetry.as_log(), cfg.telemetry_hosts,
+                               cfg.doctor_buckets)
+    shape = (cfg.telemetry_hosts, cfg.doctor_buckets, 2)
+    check(tuple(hist.shape) == shape
+          and int(hist[..., 1].sum()) == sum(tr.telemetry.mark),
+          f"trainer doctor: histogram {tuple(hist.shape)}")
+    err7 = exact(f"K7 in the trainer's doctor at {shape}",
+                 k7_outputs(wr.windowed_ratio(hist)),
+                 k7_outputs(wr.windowed_ratio_plain(hist)))
+    got = diagnose(tr.telemetry.as_log(), cfg.telemetry_hosts,
+                   num_buckets=cfg.doctor_buckets)
+    on_cpu = copy.copy(tr.telemetry)
+    on_cpu.device = torch.device("cpu")
+    want = diagnose(on_cpu.as_log(), cfg.telemetry_hosts,
+                    num_buckets=cfg.doctor_buckets)
+    for f in ("rho", "cusum"):
+        check(torch.equal(getattr(got, f).cpu().view(torch.int32),
+                          getattr(want, f).view(torch.int32)),
+              f"trainer doctor: {f} on the card differs from the CPU")
+    check(torch.equal(got.alarm.cpu(), want.alarm)
+          and torch.equal(got.suspect_rank.cpu(), want.suspect_rank),
+          f"trainer doctor: alarm {got.alarm.tolist()} / "
+          f"{want.alarm.tolist()} (card / CPU)")
+    seed = pipe.malgen_seed
+    u = pipe.malgen_draws(TRAIN_CHECK_STEP).u_site
+    err6 = exact(f"K6 at a batch's {u.numel()} unmarked draws",
+                 ps.powerlaw_sample(u, seed.unmarked_cdf),
+                 ps.powerlaw_sample_plain(u, seed.unmarked_cdf))
+    marked = draw_events(seed.rng_seed, "marked", 0, seed.num_marked_events,
+                         pipe.malgen_cfg, device)
+    sites = ps.powerlaw_sample(marked.u_site, seed.marked_cdf)
+    err6 = max(err6, exact(
+        f"K6 at the marked stream's {marked.u_site.numel()} draws", sites,
+        ps.powerlaw_sample_plain(marked.u_site, seed.marked_cdf)))
+    check(torch.equal(sites, pipe.marked[0]),
+          "the pipeline's marked sites differ from K6 on its draws")
+    ms = dict(
+        k7=time_ms(lambda: wr.windowed_ratio(hist), device, iters=20),
+        k7_plain=time_ms(lambda: wr.windowed_ratio_plain(hist), device,
+                         iters=20),
+        k6=time_ms(lambda: ps.powerlaw_sample(u, seed.unmarked_cdf), device,
+                   iters=20),
+        k6_plain=time_ms(lambda: ps.powerlaw_sample_plain(
+            u, seed.unmarked_cdf), device, iters=20))
+    log("train", f"{card}: K7 at {shape} {ms['k7']:.4f} ms (plain "
+                 f"{ms['k7_plain']:.4f}); K6 at {u.numel()} draws over "
+                 f"{seed.unmarked_cdf.numel()} sites {ms['k6']:.4f} ms "
+                 f"(plain {ms['k6_plain']:.4f}); wrapper calls, CUDA events")
+    return dict(max_abs_err=max(err6, err7), alarm=want.alarm.tolist(), **ms)
+
+
+def trainer_bad_host(device, root: pathlib.Path, card: str) -> dict:
+    """(a) The trainer at the JAX launcher's defaults with host 5 failing,
+    on the real clock and then, with the CPU, on the fake one."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.malgen import EventDraws
+
+    data = DataConfig(**TRAIN_DATA)
+    made = []
+
+    def batch_fn(step):
+        made.append(step)
+        return pipe.batch_at(step)
+
+    sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe = TokenPipeline(data, device=device)
+    sync(device)
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    tr = make_trainer(device, batch_fn, root / "real", bad_host_hook)
+    straggles = []
+    real_straggled = tr.telemetry.straggled
+
+    def straggled(duration, factor):
+        if real_straggled(duration, factor):
+            straggles.append(duration * 1e3)
+            return True
+        return False
+
+    tr.telemetry.straggled = straggled
+    with trainer_patched(device, fake_clock=False) as doctor_ms:
+        t0 = time.perf_counter()
+        report = tr.run()
+        wall = time.perf_counter() - t0
+    sync(device)
+    launches = launch_counts()
+    hist = report["history"]
+    tail = {h["host"] for h in hist[-16:]}
+    check(report["final_step"] == TRAIN_RUN["total_steps"],
+          f"trainer: final step {report['final_step']}")
+    check(TRAIN_BAD_HOST in report["blocklist"],
+          f"trainer: blocklist {report['blocklist']} lacks host "
+          f"{TRAIN_BAD_HOST}")
+    check(TRAIN_BAD_HOST not in tail,
+          f"trainer: host {TRAIN_BAD_HOST} served one of the last 16 steps")
+    check(launches["windowed_ratio"] == len(doctor_ms),
+          f"trainer: {launches['windowed_ratio']} K7 launches for "
+          f"{len(doctor_ms)} doctor runs")
+    check(launches["powerlaw_sample"] == len(made) + 1,
+          f"trainer: {launches['powerlaw_sample']} K6 launches for "
+          f"{len(made)} batches and the marked stream")
+    others = {k: v for k, v in launches.items()
+              if k not in ("windowed_ratio", "powerlaw_sample") and v}
+    check(not others, f"trainer: other kernels launched: {others}")
+    durs = [h["dur"] * 1e3 for h in hist]
+    out = dict(
+        launches=dict(launches), batches=len(made), doctor_runs=len(doctor_ms),
+        steps=len(hist), wall_s=wall, steps_per_s=len(hist) / wall,
+        steps_per_s_without_doctor=len(hist) / (wall - sum(doctor_ms) / 1e3),
+        step_ms_p50=statistics.median(durs), straggles_ms=straggles,
+        doctor_ms_p50=statistics.median(doctor_ms), pipeline_ms=pipe_ms,
+        blocklist=report["blocklist"], retries=report["retries"],
+        restarts=report["restarts"])
+    log("train", f"{card}: {out['steps']} steps in {wall:.3f} s = "
+                 f"{out['steps_per_s']:.1f} steps/s "
+                 f"({out['steps_per_s_without_doctor']:.1f} without the "
+                 f"doctor runs; step p50 {out['step_ms_p50']:.3f} ms, host "
+                 f"clock; straggles marked {straggles} ms), "
+                 f"{out['retries']} retries, {out['restarts']} restarts, "
+                 f"blocklist {out['blocklist']}; {len(doctor_ms)} doctor runs, "
+                 f"p50 {out['doctor_ms_p50']:.3f} ms, max "
+                 f"{max(doctor_ms):.3f}; {len(made)} batches; pipeline built "
+                 f"in {pipe_ms:.1f} ms; launches K6 "
+                 f"{launches['powerlaw_sample']}, K7 "
+                 f"{launches['windowed_ratio']}")
+    out.update(trainer_doctor_and_k6(tr, pipe, device, card))
+
+    # the same run on the fake clock, on the card and then on the CPU on
+    # the card's batches
+    card_batches = {}
+
+    def card_fn(step):
+        card_batches[step] = pipe.batch_at(step)
+        return card_batches[step]
+
+    def cpu_fn(step):
+        b = card_batches[step] if step in card_batches else pipe.batch_at(step)
+        return {k: v.cpu() for k, v in b.items()}
+
+    cpu = torch.device("cpu")
+    with trainer_patched(device, fake_clock=True):
+        on_card = make_trainer(device, card_fn, root / "fake_card",
+                               bad_host_hook).run()
+    with trainer_patched(cpu, fake_clock=True):
+        on_cpu = make_trainer(cpu, cpu_fn, root / "fake_cpu",
+                              bad_host_hook).run()
+    diff = same_report("trainer on the fake clock, card against CPU",
+                       on_card, on_cpu, exact_losses=False)
+    check(TRAIN_BAD_HOST in on_card["blocklist"],
+          f"trainer on the fake clock: blocklist {on_card['blocklist']}")
+    log("train", f"{card}: fake clock: card equals CPU ({len(on_card['history'])}"
+                 f" steps, {on_card['retries']} retries, "
+                 f"{on_card['restarts']} restarts, blocklist "
+                 f"{on_card['blocklist']}; max loss difference {diff!r})")
+    # one card batch against the CPU path given the card's draws and seed
+    cpu_pipe = TokenPipeline(data, device="cpu",
+                             seed=pipe.malgen_seed.to("cpu"),
+                             marked=tuple(x.cpu() for x in pipe.marked))
+    draws = pipe.malgen_draws(TRAIN_CHECK_STEP)
+    want = cpu_pipe.tokens_at(TRAIN_CHECK_STEP, unmarked=EventDraws(
+        *(x.cpu() for x in draws)))
+    got = pipe.tokens_at(TRAIN_CHECK_STEP).cpu()
+    check(torch.equal(got, want) and got.shape == (
+        TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"] + 1),
+          f"batch {TRAIN_CHECK_STEP}: the card's tokens differ from the "
+          f"CPU path's on the card's draws")
+    out.update(fake_loss_diff=diff, pipe=pipe)
+    return out
+
+
+def trainer_resume(device, pipe, root: pathlib.Path, card: str) -> None:
+    """(b) A run of 20 steps dropped, a new trainer resumed from its
+    checkpoint, against an uninterrupted run of 25 (fake clock)."""
+    kw = dict(total_steps=25)
+    with trainer_patched(device, fake_clock=True):
+        first = make_trainer(device, pipe.batch_at, root / "crash", None,
+                             **kw)
+        first.cfg.total_steps = 20
+        first.run()
+        del first
+        second = make_trainer(device, pipe.batch_at, root / "crash", None,
+                              **kw)
+        start = second.resume_if_possible()
+        report = second.run()
+        whole = make_trainer(device, pipe.batch_at, root / "whole", None,
+                             **kw)
+        want = whole.run()
+    check(start == 20 and report["final_step"] == 25,
+          f"resume: started at {start}, ended at {report['final_step']}")
+    tail = dict(want, history=[h for h in want["history"]
+                               if h["step"] >= 20])
+    same_report("resumed trainer against an uninterrupted run", report,
+                tail, exact_losses=True)
+    check(torch.equal(second.state[0].view(torch.int32),
+                      whole.state[0].view(torch.int32))
+          and int(second.state[1]) == int(whole.state[1]) == 25,
+          "resume: the final state differs from the uninterrupted run's")
+    log("train", f"{card}: resumed at 20, steps 20-24 equal to the "
+                 f"uninterrupted run's")
+
+
+def bf16_moments_close(a: torch.Tensor, b: torch.Tensor,
+                       old: torch.Tensor) -> tuple:
+    """Two bf16 moments from one update: ``(ok, max ulps)``. ``ok`` holds
+    each pair within one bf16 ulp of the larger, plus 2^-20 of the
+    magnitude of the terms the f32 update summed (``|new| + |old|``):
+    where ``b1 * mu`` and ``(1 - b1) * g`` cancel, the clip factor's one
+    f32 ulp (the grad norm's reduction order) is more than a bf16 ulp of
+    the small result. ``max ulps`` is in ulps of the larger value."""
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    big = torch.maximum(af.abs(), bf.abs())
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), (e - 8).clamp(min=-133))
+    diff = (af - bf).abs()
+    slack = ulp + (big + old.to(torch.float32).abs()) * 2.0**-20
+    return bool((diff <= slack).all()), float((diff / ulp).max())
+
+
+def adamw_full_width(device, card: str) -> dict:
+    """(c) AdamW and int8 error feedback at one llama3-8b decoder layer's
+    width: 3 updates with f32 and with bf16 moments, each held against the
+    CPU's update of the same inputs, then timed against its byte bound;
+    ``tree_ef_compress`` on the card bit-equal to the CPU."""
+    from repro_torch.common import tree as tr
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import compress_int8
+    from repro_torch.optim.compression import tree_ef_compress
+
+    cpu = torch.device("cpu")
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(ADAMW_SEED)
+
+    def leaves(scale):
+        return {k: torch.randn(s, generator=g, device=device) * scale
+                for k, s in LLAMA_LAYER.items()}
+
+    params = leaves(0.02)
+    grads = [leaves(1e-3) for _ in range(ADAMW_STEPS)]
+    n = tr.tree_count_params(params)
+    check(n == LLAMA_LAYER_PARAMS, f"llama3-8b layer: {n} parameters")
+    on_cpu = lambda t: tr.tree_map(lambda x: x.to(cpu), t)  # noqa: E731
+    on_card = lambda t: tr.tree_map(lambda x: x.to(device), t)  # noqa: E731
+    out = {}
+    for md in ("float32", "bfloat16"):
+        cfg = AdamWConfig(moment_dtype=md)
+        p, state = params, adamw_init(params, cfg)
+        worst = dict(params=0.0, mu=0.0, nu=0.0, grad_norm=0.0)
+        t0 = time.perf_counter()
+        for i in range(ADAMW_STEPS):
+            p_new, s_new, m = adamw_update(p, grads[i], state, cfg)
+            cp, cs, cm = adamw_update(on_cpu(p), on_cpu(grads[i]),
+                                      on_cpu(state), cfg)
+            check(s_new.step.dtype == cs.step.dtype == torch.int32
+                  and int(s_new.step) == int(cs.step) == i + 1,
+                  f"AdamW ({md}): step {int(s_new.step)} / {int(cs.step)}")
+            gn = abs(float(m["grad_norm"]) - float(cm["grad_norm"]))
+            worst["grad_norm"] = max(worst["grad_norm"],
+                                     gn / float(cm["grad_norm"]))
+            groups = (("params", p_new, cp, p), ("mu", s_new.mu, cs.mu,
+                                                 state.mu),
+                      ("nu", s_new.nu, cs.nu, state.nu))
+            for part, got_t, want_t, old_t in groups:
+                for (name, a), b, old in zip(
+                        tr.tree_flatten_with_paths(got_t),
+                        tr.tree_leaves(on_card(want_t)),
+                        tr.tree_leaves(old_t)):
+                    check(a.dtype == b.dtype and a.shape == b.shape,
+                          f"AdamW ({md}) {part}/{name}: {a.dtype} vs "
+                          f"{b.dtype}")
+                    if a.dtype == torch.bfloat16:
+                        ok, ulps = bf16_moments_close(a, b, old)
+                        worst[part] = max(worst[part], ulps)
+                        check(ok, f"AdamW ({md}) {part}/{name}: {ulps} bf16 "
+                                  f"ulps from the CPU")
+                        continue
+                    d = (a - b).abs()
+                    ok = bool((d <= 1e-6 + 1e-5 * b.abs()).all())
+                    worst[part] = max(worst[part], float(d.max()))
+                    check(ok, f"AdamW ({md}) {part}/{name}: max |card - CPU| "
+                              f"{float(d.max())} beyond rtol 1e-5, atol 1e-6")
+                    del d
+            del cp, cs
+            p, state = p_new, s_new
+        checked_s = time.perf_counter() - t0
+        times = []
+        for _ in range(ADAMW_TURNS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            adamw_update(p, grads[0], state, cfg)
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times[1:])
+        # the norm pass reads g; the update reads p, g, mu and nu and
+        # writes p, mu and nu
+        moved = (2 * tr.tree_bytes(grads[0]) + 2 * tr.tree_bytes(p)
+                 + 2 * tr.tree_bytes(state.mu) + 2 * tr.tree_bytes(state.nu))
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        out[md] = dict(ms=ms, bound_ms=bound, bytes=moved,
+                       times=times[1:], worst=worst, checked_s=checked_s)
+        log("adamw", f"{card}: {md} moments: one update of {n:,} parameters "
+                     f"{ms:.3f} ms (median of {ADAMW_TURNS}, CUDA events; "
+                     f"{times[1:]}) against a bound of {bound:.3f} ms "
+                     f"({moved:,} B at 3.35 TB/s): {ms / bound:.2f}x; "
+                     f"card against CPU over {ADAMW_STEPS} steps: {worst} "
+                     f"(params and f32 moments max |diff|, bf16 moments in "
+                     f"ulps of the larger value, grad_norm relative); "
+                     f"checked in "
+                     f"{checked_s:.1f} s")
+        del p, state
+    # int8 error feedback: two rounds, the second with the first's errors
+    errors = tr.tree_map(torch.zeros_like, grads[0])
+    for r in range(2):
+        est, new_err = tree_ef_compress(grads[r], errors)
+        c_est, c_err = tree_ef_compress(on_cpu(grads[r]), on_cpu(errors))
+        for part, a_t, b_t in (("estimate", est, c_est),
+                               ("error", new_err, c_err)):
+            for (name, a), b in zip(tr.tree_flatten_with_paths(a_t),
+                                    tr.tree_leaves(b_t)):
+                check(torch.equal(a.view(torch.int32).cpu(),
+                                  b.view(torch.int32)),
+                      f"int8 EF round {r} {part}/{name}: card and CPU bits "
+                      f"differ")
+        for name, x in tr.tree_flatten_with_paths(grads[r]):
+            target = x + errors[name]
+            q, s = compress_int8(target)
+            cq, cs = compress_int8(target.cpu())
+            check(torch.equal(q.cpu(), cq)
+                  and torch.equal(s.view(torch.int32).cpu(),
+                                  cs.view(torch.int32)),
+                  f"int8 round {r} {name}: q or scale bits differ")
+        errors = new_err
+    ef_ms = time_ms(lambda: tree_ef_compress(grads[0], errors), device)
+    sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    out.update(ef_ms=ef_ms, peak_gib=peak / 2**30, before_gib=before / 2**30)
+    log("adamw", f"{card}: int8 error feedback bit-equal to the CPU (q, "
+                 f"scale, estimate, error; 2 rounds); one tree_ef_compress "
+                 f"{ef_ms:.3f} ms; peak device memory {peak / 2**30:.3f} GiB "
+                 f"({before / 2**30:.3f} before)")
+    return out
+
+
+def trainer_phase(device, card: str) -> dict:
+    t0 = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        bad = trainer_bad_host(device, root, card)
+        pipe = bad.pop("pipe")
+        trainer_resume(device, pipe, root, card)
+        del pipe
+        opt = adamw_full_width(device, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("train", f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    return dict(trainer=bad, adamw=opt)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--sanitizer-child"]:
         return sanitizer_child()
@@ -3397,16 +3911,20 @@ def main() -> int:
             row["gang_launches"] = gangs["launches"][f"N=2 {GANG_MAIN}"][
                 row["name"]]
         static = static_checks(device)
+        train = trainer_phase(device, card)
+        for row in kernels:
+            row["trainer_launches"] = train["trainer"]["launches"][
+                row["name"]]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"sanitizer": static["sanitizer"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()},
-        "sanitizer": static["sanitizer"]}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

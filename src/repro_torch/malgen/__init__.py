@@ -25,6 +25,7 @@ from repro_torch.malgen.seeding import (
     chunk_marked_records,
     make_seed,
     make_seed_streaming,
+    make_seed_with_marked,
     seed_from_numpy,
 )
 
@@ -33,5 +34,5 @@ __all__ = ["ChunkMarkDraws", "EventDraws", "MalGenConfig", "RECORD_BYTES",
            "chunk_shard_hash", "decode_records", "encode_records",
            "generate_chunk", "generate_chunked_log", "generate_chunks",
            "generate_shard", "generate_shards_device", "make_seed",
-           "make_seed_streaming", "power_law_cdf", "power_law_weights",
-           "sample_sites", "seed_from_numpy"]
+           "make_seed_streaming", "make_seed_with_marked", "power_law_cdf",
+           "power_law_weights", "sample_sites", "seed_from_numpy"]

@@ -100,7 +100,9 @@ _STREAM_TAGS = ("site_permutation", "marked_sites", "marked_site",
                 # the streaming engine's per-chunk streams (shard = chunk id)
                 "chunk_marked_site", "chunk_marked_entity", "chunk_marked_ts",
                 "chunk_marked_bernoulli", "chunk_unmarked_site",
-                "chunk_unmarked_entity", "chunk_unmarked_ts")
+                "chunk_unmarked_entity", "chunk_unmarked_ts",
+                # the token pipeline's synthetic source (data/pipeline.py)
+                "token_synthetic")
 _MASK64 = (1 << 64) - 1
 
 
@@ -209,6 +211,20 @@ def make_seed(rng_seed: int, cfg: MalGenConfig, total_records: int, *,
     """Phase 1 for a global budget of ``total_records`` records; the
     marked stream gets ``round(total * marked_event_fraction)`` events.
     Runs on the card unless ``device="cpu"``."""
+    return make_seed_with_marked(
+        rng_seed, cfg, total_records, device=device, site_draws=site_draws,
+        marked_draws=marked_draws, bernoulli=bernoulli)[0]
+
+
+def make_seed_with_marked(rng_seed: int, cfg: MalGenConfig,
+                          total_records: int, *, device=None,
+                          site_draws: Optional[SiteDraws] = None,
+                          marked_draws: Optional[EventDraws] = None,
+                          bernoulli: Optional[torch.Tensor] = None):
+    """``(make_seed(...), marked)``: the seed and the global marked stream
+    ``(site, entity, ts)`` its mark table was derived from, which
+    ``marked_event_stream`` would regenerate, so a caller that keeps the
+    stream (the token pipeline) samples its sites once."""
     device = resolve_device(device)
     weights, marked_mask, marked_cdf, unmarked_cdf = _site_tables(
         rng_seed, cfg, device, site_draws)
@@ -218,13 +234,14 @@ def make_seed(rng_seed: int, cfg: MalGenConfig, total_records: int, *,
                     entity_mark_time=torch.empty(0, dtype=torch.int32),
                     site_weights=weights, num_marked_events=num_marked,
                     marked_cdf=marked_cdf, unmarked_cdf=unmarked_cdf)
-    _, entity, ts = marked_event_stream(seed, cfg, marked_draws)
+    marked = marked_event_stream(seed, cfg, marked_draws)
+    _, entity, ts = marked
     if bernoulli is None:
         g = stream_generator(rng_seed, "marked_bernoulli", 0, device)
         bernoulli = torch.rand(num_marked, generator=g,
                                device=device) < cfg.p_mark
     mark_time = _derive_mark_table(entity, ts, bernoulli.to(device), cfg)
-    return seed._replace(entity_mark_time=mark_time)
+    return seed._replace(entity_mark_time=mark_time), marked
 
 
 def seed_from_numpy(arrays, cfg: MalGenConfig, rng_seed: int, *,

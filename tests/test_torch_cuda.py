@@ -1147,3 +1147,159 @@ def test_collective_family_on_the_card_is_clean(cuda_device):
 
     ctx = AnalysisContext(device=cuda_device)
     assert run_passes(["collectives"], ctx) == []
+
+
+# -- the trainer slice: AdamW, int8 error feedback, the token pipeline and
+# the trainer's doctor on the card against the CPU ------------------------
+
+def _optim_tree(device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {"w": torch.randn((256, 96), generator=g).to(device),
+            "b": torch.randn(96, generator=g).to(device),
+            "norm": {"scale": torch.randn(33, generator=g).to(device)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+def test_adamw_on_card_equals_cpu(cuda_device, moment_dtype, grad_clip):
+    """Each of 5 updates on the card against the CPU's update of the same
+    inputs: step exact, params and f32 moments rtol 1e-5 / atol 1e-6,
+    bf16 moments within one bf16 ulp of the larger value plus 2^-20 of
+    the terms the f32 update summed (|new| + |old|): where b1 * mu and
+    (1 - b1) * g cancel, the clip factor's one f32 ulp (the grad norm's
+    reduction order differs between the card and the CPU) is two bf16
+    ulps of the small result."""
+    from repro_torch.common import tree as tr
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    cfg = AdamWConfig(moment_dtype=moment_dtype, grad_clip=grad_clip)
+    params = _optim_tree(cuda_device)
+    state = adamw_init(params, cfg)
+    for i in range(5):
+        grads = _optim_tree(cuda_device, seed=i + 1)
+        p, s, m = adamw_update(params, grads, state, cfg)
+        cpu = [tr.tree_map(lambda x: x.cpu(), t)
+               for t in (params, grads, state)]
+        cp, cs_, cm = adamw_update(*cpu, cfg)
+        assert int(s.step) == int(cs_.step) == i + 1
+        assert s.step.dtype == torch.int32
+        for a, b, old in zip(tr.tree_leaves((p, s.mu, s.nu)),
+                             tr.tree_leaves((cp, cs_.mu, cs_.nu)),
+                             tr.tree_leaves((params, state.mu, state.nu))):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            a = a.cpu()
+            if a.dtype == torch.bfloat16:
+                big = torch.maximum(a.float().abs(), b.float().abs())
+                _, e = torch.frexp(big)
+                ulp = torch.ldexp(torch.ones_like(big), (e - 8).clamp(
+                    min=-133))
+                slack = ulp + (big + old.cpu().float().abs()) * 2.0**-20
+                assert bool(((a.float() - b.float()).abs() <= slack).all())
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(m["grad_norm"].cpu(), cm["grad_norm"],
+                                   rtol=1e-6, atol=0)
+        params, state = p, s
+
+
+@pytest.mark.cuda
+def test_int8_error_feedback_on_card_bits_equal_cpu(cuda_device):
+    from repro_torch.common import tree as tr
+    from repro_torch.optim import compress_int8
+    from repro_torch.optim.compression import tree_ef_compress
+
+    errors = tr.tree_map(torch.zeros_like, _optim_tree(cuda_device))
+    for r in range(3):
+        grads = _optim_tree(cuda_device, seed=10 + r)
+        est, err = tree_ef_compress(grads, errors)
+        c_est, c_err = tree_ef_compress(
+            tr.tree_map(lambda x: x.cpu(), grads),
+            tr.tree_map(lambda x: x.cpu(), errors))
+        for a, b in zip(tr.tree_leaves((est, err)),
+                        tr.tree_leaves((c_est, c_err))):
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+        for x in tr.tree_leaves(grads):
+            q, s = compress_int8(x * 1e3)
+            cq, cs_ = compress_int8(x.cpu() * 1e3)
+            assert torch.equal(q.cpu(), cq)
+            assert torch.equal(s.cpu().view(torch.int32),
+                               cs_.view(torch.int32))
+        errors = err
+
+
+def _toy_step(state, batch):
+    w, opt_step = state
+    x = batch["tokens"].to(torch.float32)
+    loss = torch.mean((x.mean() - w) ** 2)
+    w = w - 0.1 * 2 * (w - x.mean())
+    return (w, opt_step + 1), {"loss": loss}
+
+
+@pytest.mark.cuda
+def test_trainer_doctor_on_card_equals_cpu(cuda_device, tmp_path,
+                                           monkeypatch):
+    """The bad-host run on the card (malgen tokens, K6 a batch) against
+    the same run on the CPU over the card's batches, both on a fake clock:
+    equal reports; K7 launched once a doctor run, K6 once a batch plus the
+    marked stream."""
+    import itertools
+    import types
+
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.malgen import MalGenConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.runtime import trainer as trainer_mod
+
+    runs = {"doctor": 0}
+    real = trainer_mod.diagnose
+
+    def counting(*a, **k):
+        runs["doctor"] += 1
+        return real(*a, **k)
+
+    def hook(step, host):
+        if host == 5 and step > 8:
+            raise RuntimeError("flaky host 5")
+
+    def run(device, batch_fn, sub):
+        counter = itertools.count()
+        monkeypatch.setattr(trainer_mod, "time", types.SimpleNamespace(
+            monotonic=lambda: next(counter) / 1024.0))
+        cfg = TrainConfig(total_steps=80, ckpt_every=10, doctor_every=8,
+                          ckpt_dir=str(tmp_path / sub))
+        state = (torch.zeros((), device=device),
+                 torch.zeros((), dtype=torch.int32, device=device))
+        return Trainer(cfg, _toy_step, state, batch_fn, fault_hook=hook,
+                       device=device).run()
+
+    monkeypatch.setattr(trainer_mod, "diagnose", counting)
+    batches = {}
+    reset_launch_counts()
+    pipe = TokenPipeline(DataConfig(source="malgen", global_batch=4,
+                                    seq_len=64, malgen=MalGenConfig(
+                                        num_sites=500, num_entities=2000)),
+                         device=cuda_device)
+
+    def card_fn(step):
+        batches.setdefault(step, []).append(pipe.batch_at(step))
+        return batches[step][-1]
+
+    got = run(cuda_device, card_fn, "card")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    made = sum(len(v) for v in batches.values())
+    assert counts["windowed_ratio"] == runs["doctor"] > 0
+    assert counts["powerlaw_sample"] == made + 1
+    want = run(torch.device("cpu"),
+               lambda s: {k: v.cpu() for k, v in batches[s][0].items()},
+               "cpu")
+    for key in ("final_step", "restarts", "retries", "blocklist"):
+        assert got[key] == want[key], key
+    assert 5 in got["blocklist"]
+    assert [(h["step"], h["host"]) for h in got["history"]] == [
+        (h["step"], h["host"]) for h in want["history"]]
+    np.testing.assert_allclose([h["loss"] for h in got["history"]],
+                               [h["loss"] for h in want["history"]],
+                               rtol=1e-6)
