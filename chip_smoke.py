@@ -214,6 +214,25 @@
    ms of one update (CUDA events, median of 5) against its byte bound at
    3.35 TB/s; two rounds of ``tree_ef_compress`` bit-equal to the CPU
    (``q``, ``scale``, estimate, error); peak device memory.
+14. The language-model forward (ROADMAP Queue 1 item 9b), which launches
+   none of K1-K7 (checked), with the card's name, power limit and TF32
+   flags on its lines: (1) llama3-8b (S = 256), gemma2-2b and
+   granite-moe-1b-a400m (S = 512) at full width, 2 layers and f32, from
+   one set of parameters on the card and on the CPU: the MoE router's
+   choices on the card's inputs equal, its choices on the CPU's own
+   inputs explained by their drift, the dropped fractions equal; each
+   block on the card's input to it within 2e-3 (2e-2 for MoE), the head
+   within 2e-3, the logits and loss end to end within 2e-3 (the MoE's
+   loss within 2e-2, its logits printed with the CPU routed by the card's
+   choices); causality at f32 (1e-5; 2e-2 for the MoE). (2) The eight
+   attention architectures at full width and bf16, B = 1, S = 4096 (gemma2
+   8192; internvl2 256 patches + 3840 tokens; whisper 448 tokens over 1500
+   frames; grok-1 2 of 64 layers): logits shape and finite, loss finite,
+   causality (printed where the bits differ), forward ms (median of 3),
+   tokens/s, peak memory, the FLOPs the code computes and their share of
+   the 989 TFLOP/s bf16 peak. (3) llama3-8b's top operators and kernels
+   by device time from one profiled forward in a fresh process
+   (``--model-profile-child``).
 
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
@@ -315,6 +334,25 @@ LLAMA_LAYER = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
                "attn_norm": (4096,), "mlp_norm": (4096,)}
 LLAMA_LAYER_PARAMS = 218_112_000
 ADAMW_STEPS, ADAMW_TURNS, ADAMW_SEED = 3, 5, 26
+# phase 14: the language-model forward (ROADMAP Queue 1 item 9b). (1)
+# card against CPU at f32, full width, 2 layers (gemma2: one local, one
+# global); (2) each attention architecture at full width and the configs'
+# bf16, B = 1, S = 4096 (train_4k, models/steps.py:37), gemma2 at 8192 so
+# that its 4096-token window masks, internvl2 256 patches + 3840 tokens,
+# whisper 448 decoder tokens over 1500 frames, grok-1 at 2 of 64 layers
+# (631 GB at full depth); (3) llama3-8b's top device ops
+MODEL_SEED = 27
+MODEL_CHECK_LAYERS = 2
+MODEL_CHECKS = (("llama3_8b", 256), ("gemma2_2b", 512),
+                ("granite_moe_1b_a400m", 512))
+MODEL_RUNS = (("llama3_8b", None, 4096), ("gemma2_2b", None, 8192),
+              ("qwen1_5_4b", None, 4096), ("granite_20b", None, 4096),
+              ("granite_moe_1b_a400m", None, 4096),
+              ("grok_1_314b", 2, 4096), ("internvl2_1b", None, 4096),
+              ("whisper_small", None, 448))
+MODEL_TURNS = 3
+MODEL_TOP_OPS = 12
+PEAK_BF16 = 989e12                 # dense bf16 FLOP/s, H100 SXM data sheet
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
 GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
 FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
@@ -3862,9 +3900,460 @@ def trainer_phase(device, card: str) -> dict:
     return dict(trainer=bad, adamw=opt)
 
 
+# ------------------------------------------------------------- phase 14
+def tf32_state() -> str:
+    return (f"TF32 flags: torch.backends.cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}, "
+            f"torch.backends.cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32} (no cuDNN op runs), "
+            f"float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}")
+
+
+@contextlib.contextmanager
+def recorded_routes(forced=None):
+    """Each MoE call's router input, weights, probabilities and expert
+    choices (``[n, g, k]``), and its dropped fraction, as the forward runs,
+    in call order (copied to the host). With ``forced`` (another run's
+    records), call i keeps its own record but routes by ``forced[i]``'s
+    choices, its gate values taken from its own probabilities, so that
+    everything after the router can be compared with that run."""
+    from repro_torch.models import mlp as M
+
+    routes = []
+    real_route, real_apply = M.moe_route, M.moe_apply
+
+    def moe_route(router, xg, top_k):
+        probs, gates, idx = real_route(router, xg, top_k)
+        routes.append(dict(router=router.cpu(), x=xg.cpu(),
+                           probs=probs.cpu(), idx=idx.cpu()))
+        if forced is not None:
+            idx = forced[len(routes) - 1]["idx"].to(idx.device)
+            gates = torch.gather(probs, -1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return probs, gates, idx
+
+    def moe_apply(p, x, **kw):
+        y, metrics = real_apply(p, x, **dict(kw, return_metrics=True))
+        routes[-1]["dropped"] = float(metrics["moe_dropped_frac"])
+        return y
+
+    M.moe_route, M.moe_apply = moe_route, moe_apply
+    try:
+        yield routes
+    finally:
+        M.moe_route, M.moe_apply = real_route, real_apply
+
+
+def same_routes(arch: str, card, cpu, top_k: int) -> dict:
+    """The card's MoE choices against the CPU's, call by call: (a) on the
+    card's router input the CPU chooses exactly what the card chose; (b)
+    where the CPU's own choices (on its own input, which drifts by float
+    order from the card's) differ, each is explained by that drift: with
+    delta = max |p_card - p_cpu|, the CPU's probability of the card's j-th
+    choice is within 2 delta of its own j-th largest, for every j (order
+    statistics move by at most delta); (c) the dropped fractions, with
+    the CPU routed by the card's choices, are equal."""
+    from repro_torch.models import mlp as M
+
+    check(len(card) == len(cpu), f"{arch}: {len(card)} / {len(cpu)} MoE "
+                                 f"calls")
+    flips, worst_delta = 0, 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        _, _, idx = M.moe_route(a["router"], a["x"], top_k)
+        check(torch.equal(idx, a["idx"]), f"{arch}: MoE call {i}: the CPU "
+              f"routes the card's input differently from the card")
+        delta = float((a["probs"] - b["probs"]).abs().max())
+        worst_delta = max(worst_delta, delta)
+        at_card = torch.gather(b["probs"], -1, a["idx"])
+        at_cpu = torch.gather(b["probs"], -1, b["idx"])
+        gap = float((at_card - at_cpu).abs().max())
+        check(gap <= 2 * delta, f"{arch}: MoE call {i}: a choice the card "
+              f"made is {gap} below the CPU's, beyond 2 x the drift {delta}")
+        flips += int((a["idx"] != b["idx"]).any(-1).sum())
+        check(a["dropped"] == b["dropped"], f"{arch}: MoE call {i}: dropped "
+              f"{a['dropped']} / {b['dropped']} under the same choices")
+    return dict(calls=len(card), flips=flips, prob_drift=worst_delta,
+                dropped=[a["dropped"] for a in card])
+
+
+def model_cfg(arch: str, layers=None, f32: bool = False):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+    return cfg
+
+
+def model_batch(cfg, seq: int, device, seed: int) -> dict:
+    """B = 1: ``seq`` positions (for a VLM the patch prefix and the rest
+    tokens), labels the tokens; frames for an encoder-decoder, at the
+    compute dtype, 0.1 x a normal draw."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
+    n_tok = seq - (cfg.num_patches if cfg.family == "vlm" else 0)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_tok), generator=g,
+                         device=device, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.family == "vlm":
+        batch["patches"] = (0.1 * torch.randn(
+            (1, cfg.num_patches, cfg.d_model), generator=g,
+            device=device)).to(dt)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = (0.1 * torch.randn(
+            (1, cfg.encoder_seq, cfg.d_model), generator=g,
+            device=device)).to(dt)
+    return batch
+
+
+def causality(params, cfg, batch: dict) -> float:
+    """The largest change of the earlier positions' logits when the last
+    token changes. A MoE runs at capacity factor 8.0 here, as JAX's
+    causality test does (``tests/test_models.py:21-25``): where a group
+    drops tokens, the last token's first choice takes a slot that can push
+    an earlier token's second choice past the capacity (GShard's
+    priority), so causality holds only without drops. Even without drops
+    that choice moves the slot index of earlier tokens' later choices, and
+    with it where their terms fall in the combine product's K = E x C
+    reduction, so their sums round differently (one MoE layer at
+    granite-moe's width moves earlier rows by 1.2e-7, on the card and on
+    the CPU alike), and the next layer's bf16 dispatch turns that into
+    bf16 ulps: a MoE's earlier logits are not bit-stable."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    toks = batch["tokens"].clone()
+    toks[:, -1] = (toks[:, -1] + 7) % cfg.vocab_size
+    first = T.forward(params, cfg, batch)[:, :-1]
+    later = T.forward(params, cfg, {**batch, "tokens": toks})[:, :-1]
+    return float((later - first).abs().max())
+
+
+def forward_flops(cfg, batch: dict) -> int:
+    """The matmul FLOPs of one forward as the code computes them (every kv
+    chunk, masked or not; the MoE's E x C slots a group; the dispatch and
+    combine products), counted by ``FlopCounterMode`` over the same
+    forward on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import transformer as T
+
+    meta = torch.device("meta")
+    params, _ = T.init_params(cfg, device=meta)
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device=meta)
+              for k, v in batch.items()}
+    with FlopCounterMode(display=False) as counter:
+        T.forward(params, cfg, shapes)
+    return counter.get_total_flops()
+
+
+@contextlib.contextmanager
+def recorded_blocks():
+    """Each decoder block's ``(layer, params, input, output)`` as the
+    forward runs, in call order."""
+    from repro_torch.models import transformer as T
+
+    blocks, real = [], T.block_apply
+
+    def block_apply(lp, cfg, layer, x, **kw):
+        y = real(lp, cfg, layer, x, **kw)
+        blocks.append((layer, lp, x, y))
+        return y
+
+    T.block_apply = block_apply
+    try:
+        yield blocks
+    finally:
+        T.block_apply = real
+
+
+def close_f32(name: str, got, want, tol: float) -> float:
+    """``got`` (anywhere) within rtol = atol = ``tol`` of ``want`` (on the
+    CPU); returns the largest |difference|."""
+    d = (got.cpu() - want).abs()
+    err = float(d.max())
+    check(bool((d <= tol + tol * want.abs()).all()),
+          f"{name}: card against CPU max |diff| {err} beyond {tol}")
+    return err
+
+
+def model_card_vs_cpu(device, card: str) -> dict:
+    """(1) Full width, 2 layers, f32 on both sides from the same
+    parameters. The router's choices first (``same_routes``); then block
+    by block, each on the card's input to it: outputs within 2e-3 (2e-2
+    for MoE), and the head on the card's last hidden state within 2e-3;
+    then end to end: logits and loss within 2e-3 for the dense models,
+    the loss within 2e-2 for the MoE (the CPU routed by the card's
+    choices: its logits' difference is printed, since the bf16 dispatch
+    rounds the float drift of earlier layers into bf16 ulps); and
+    causality at f32 on the card: within 1e-5, 2e-2 for the MoE, whose
+    slots are not bit-stable (``causality``)."""
+    from repro_torch.common import tree as tr
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch, seq in MODEL_CHECKS:
+        t0 = time.perf_counter()
+        cfg = model_cfg(arch, MODEL_CHECK_LAYERS, f32=True)
+        moe = cfg.family == "moe"
+        tol = 2e-2 if moe else 2e-3
+        gen = torch.Generator(device=device).manual_seed(MODEL_SEED)
+        p, _ = T.init_params(cfg, generator=gen, device=device)
+        batch = model_batch(cfg, seq, device, MODEL_SEED)
+        to_cpu = lambda tree: tr.tree_map(lambda x: x.to(cpu), tree)  # noqa: E731
+        with torch.inference_mode():
+            with recorded_routes() as card_routes:
+                with recorded_blocks() as blocks:
+                    got = T.forward(p, cfg, batch)
+                loss, _ = T.lm_loss(p, cfg, batch)
+            cpu_p = to_cpu(p)
+            cpu_batch = {k: v.to(cpu) for k, v in batch.items()}
+            with recorded_routes(forced=card_routes) as cpu_routes:
+                want = T.forward(cpu_p, cfg, cpu_batch)
+                cpu_loss, _ = T.lm_loss(cpu_p, cfg, cpu_batch)
+            block_err = 0.0
+            for layer, lp, x, y in blocks:
+                block_err = max(block_err, close_f32(
+                    f"{arch} block {layer} on the card's input", y,
+                    T.block_apply(to_cpu(lp), cfg, layer, x.to(cpu)), tol))
+            head = cpu_p["embed"] if cfg.tie_embeddings else cpu_p["unembed"]
+            head_err = close_f32(
+                f"{arch} head on the card's last hidden state", got,
+                L.unembed(head, T._norm(cfg, cpu_p["final_norm"],
+                                        blocks[-1][3].to(cpu)),
+                          cfg.logit_softcap), 2e-3)
+            del blocks
+            causal = causality(p, cfg, batch)
+        del cpu_p
+        # forward and lm_loss each route every MoE layer once
+        check(len(card_routes) == (2 * cfg.num_layers if moe else 0),
+              f"{arch}: {len(card_routes)} MoE calls")
+        routed = (same_routes(arch, card_routes, cpu_routes,
+                              cfg.num_experts_per_tok) if moe else None)
+        del card_routes, cpu_routes
+        d = (got.cpu() - want).abs()
+        err = float(d.max())
+        check(moe or bool((d <= tol + tol * want.abs()).all()),
+              f"{arch}: card against CPU at f32: logits max |diff| {err} "
+              f"beyond {tol}")
+        loss_err = abs(float(loss) - float(cpu_loss))
+        check(loss_err <= tol + tol * abs(float(cpu_loss)),
+              f"{arch}: card against CPU at f32: loss |diff| {loss_err} "
+              f"beyond {tol}")
+        causal_bar = 2e-2 if moe else 1e-5
+        check(causal <= causal_bar, f"{arch}: f32 causality: earlier logits "
+                                    f"moved by {causal} (bar {causal_bar})")
+        out[arch] = dict(max_abs_err=err, loss_err=loss_err, causal=causal,
+                         block_err=block_err, head_err=head_err,
+                         routes=routed, seconds=time.perf_counter() - t0)
+        log("model", f"{card}: {arch} f32, {cfg.num_layers} layers, S={seq}: "
+                     + (f"{routed['calls']} MoE calls: the CPU routes the "
+                        f"card's inputs as the card did, on its own inputs "
+                        f"{routed['flips']} token(s) otherwise, all within "
+                        f"2 x the probability drift "
+                        f"{routed['prob_drift']:.3e}; dropped fractions "
+                        f"{routed['dropped']}; " if moe else "")
+                     + f"card against CPU, blocks on the card's inputs max "
+                       f"|diff| {block_err:.3e} (bar {tol}), head "
+                       f"{head_err:.3e} (bar 2e-3); end to end logits max "
+                       f"|diff| {err:.3e} "
+                     + ("(the CPU routed by the card's choices; not held) "
+                        if moe else f"(bar {tol}) ")
+                     + f"and loss {loss_err:.3e} (bar {tol}); f32 causality "
+                       f"max |diff| {causal:.3e} (bar {causal_bar}); "
+                       f"{out[arch]['seconds']:.1f} s")
+        del p, got, want, batch
+    return out
+
+
+def model_full_width(device, card: str, fallback: dict) -> list:
+    """(2) Every attention architecture at full width and its bf16, B = 1,
+    forward and lm_loss: shapes, finite values, causality; the median of
+    MODEL_TURNS timed forwards (CUDA events) after a warm-up, tokens/s,
+    peak device memory and the share of the bf16 peak."""
+    from repro_torch.common import tree as tr
+    from repro_torch.models import transformer as T
+
+    rows = []
+    for arch, layers, seq in MODEL_RUNS:
+        t0 = time.perf_counter()
+        cfg = model_cfg(arch, layers)
+        gen = torch.Generator(device=device).manual_seed(MODEL_SEED)
+        p, _ = T.init_params(cfg, generator=gen, device=device)
+        batch = model_batch(cfg, seq, device, MODEL_SEED)
+        param_gib = tr.tree_bytes(p) / 2**30
+        n_tok = batch["tokens"].shape[1]
+        with torch.inference_mode():
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            before = torch.cuda.memory_allocated(device)
+            logits = T.forward(p, cfg, batch)                  # warm-up
+            times = []
+            for _ in range(MODEL_TURNS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits = T.forward(p, cfg, batch)
+                end.record()
+                torch.cuda.synchronize(device)
+                times.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated(device)
+            check(tuple(logits.shape) == (1, n_tok, cfg.padded_vocab)
+                  and logits.dtype == torch.float32,
+                  f"{arch}: logits {logits.dtype}{tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits).all()),
+                  f"{arch}: logits not finite")
+            del logits
+            causal = causality(p, cfg, batch)
+            loss, metrics = T.lm_loss(p, cfg, batch)
+            check(bool(torch.isfinite(loss)), f"{arch}: loss {float(loss)}")
+        if causal > 1e-5:
+            # the two calls' products did not give the same bits: hold
+            # causality at f32 on phase 14 (1)'s models instead
+            log("model", f"{card}: {arch} bf16: earlier logits moved by "
+                         f"{causal} (bar 1e-5); causality held at f32 on "
+                         f"{sorted(fallback)} instead"
+                         + (" (a MoE: its slots are not bit-stable)"
+                            if cfg.family == "moe" else ""))
+        ms = statistics.median(times)
+        flops = forward_flops(cfg, batch)
+        row = dict(arch=arch, layers=cfg.num_layers, seq=seq, tokens=n_tok,
+                   ms=ms, times=times, tokens_per_s=seq / (ms / 1e3),
+                   peak_gib=peak / 2**30, param_gib=param_gib,
+                   before_gib=before / 2**30, flops=flops,
+                   peak_share=flops / (ms / 1e3) / PEAK_BF16,
+                   loss=float(loss), logit_max=float(metrics["logit_max"]),
+                   causal=causal, seconds=time.perf_counter() - t0)
+        rows.append(row)
+        log("model", f"{card}: {arch} bf16 {cfg.num_layers} layers "
+                     f"{'(reduced) ' if layers else ''}S={seq}"
+                     + (f" ({cfg.num_patches} patches + {n_tok} tokens)"
+                        if cfg.family == "vlm" else "")
+                     + (f" over {cfg.encoder_seq} frames"
+                        if cfg.is_encoder_decoder else "")
+                     + f": forward {ms:.3f} ms (median of {MODEL_TURNS}, "
+                       f"CUDA events; {[round(t, 3) for t in times]}), "
+                       f"{row['tokens_per_s']:.1f} tokens/s, "
+                       f"{flops / 1e12:.3f} TFLOP = "
+                       f"{row['peak_share']:.4f} of the 989 TFLOP/s bf16 "
+                       f"peak; peak {row['peak_gib']:.3f} GiB (params "
+                       f"{param_gib:.3f}); loss {row['loss']:.6g}; "
+                       f"causality max |diff| {causal:.3e}; "
+                       f"{row['seconds']:.1f} s")
+        del p, batch, loss, metrics
+        torch.cuda.empty_cache()
+    return rows
+
+
+def model_profile_child() -> int:
+    """(3) In a fresh process: llama3-8b at full depth and bf16, one
+    warm-up forward, then one profiled forward; prints the top device ops
+    as one JSON line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models import transformer as T
+
+    device = torch.device("cuda")
+    arch, layers, seq = MODEL_RUNS[0]
+    cfg = model_cfg(arch, layers)
+    gen = torch.Generator(device=device).manual_seed(MODEL_SEED)
+    p, _ = T.init_params(cfg, generator=gen, device=device)
+    batch = model_batch(cfg, seq, device, MODEL_SEED)
+    with torch.inference_mode():
+        T.forward(p, cfg, batch)
+        sync(device)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            T.forward(p, cfg, batch)
+            sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us <= 0:
+            continue
+        row = (dev_us / 1e3, e.count, e.key[:90])
+        if e.device_type == DeviceType.CUDA:
+            kernels.append(row)
+        elif e.key.startswith("aten::"):
+            ops.append(row)
+    kernels.sort(reverse=True)
+    ops.sort(reverse=True)
+    print(json.dumps({"arch": arch, "seq": seq, "wall_ms": wall_ms,
+                      "busy_ms": sum(r[0] for r in kernels),
+                      "launches": sum(r[1] for r in kernels),
+                      "top": kernels[:MODEL_TOP_OPS],
+                      "top_ops": ops[:MODEL_TOP_OPS]}))
+    return 0
+
+
+def model_profile(card: str) -> dict:
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--model-profile-child"], capture_output=True, text=True,
+        timeout=300, cwd=ROOT)
+    check(out.returncode == 0, f"model profile child failed: "
+                               f"{out.stderr[-2000:]}")
+    prof = json.loads(out.stdout.strip().splitlines()[-1])
+    busy, wall = prof["busy_ms"], prof["wall_ms"]
+    check(busy > 0, "model profile: no device time recorded")
+    log("model", f"{card}: {prof['arch']} S={prof['seq']}, one profiled "
+                 f"forward in a fresh process: wall {wall:.3f} ms, device "
+                 f"busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+                 f"{prof['launches']} kernels; top operators by the device "
+                 f"time of their kernels:")
+    for ms, count, key in prof["top_ops"]:
+        log("model", f"{ms:10.4f} ms ({ms / busy:.4f}) x{count:<5d} {key}")
+    log("model", f"{card}: top kernels:")
+    for ms, count, key in prof["top"]:
+        log("model", f"{ms:10.4f} ms ({ms / busy:.4f}) x{count:<5d} {key}")
+    return prof
+
+
+def model_phase(device, card: str) -> dict:
+    """Phase 14: the language-model forward on the card."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    log("model", f"{card}: {tf32_state()}")
+    check(torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest",
+          f"an f32 product may run in TF32: {tf32_state()}")
+    sync(device)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    f32 = model_card_vs_cpu(device, card)
+    full = model_full_width(device, card, f32)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"the model forward launched {launched}")
+    prof = model_profile(card)
+    log("model", f"{card}: {tf32_state()}; phase 14 took "
+                 f"{time.perf_counter() - t0:.1f} s")
+    return dict(f32=f32, full=full, profile=prof)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--sanitizer-child"]:
         return sanitizer_child()
+    if sys.argv[1:] == ["--model-profile-child"]:
+        return model_profile_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3915,6 +4404,7 @@ def main() -> int:
         for row in kernels:
             row["trainer_launches"] = train["trainer"]["launches"][
                 row["name"]]
+        model_phase(device, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

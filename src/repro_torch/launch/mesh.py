@@ -8,8 +8,9 @@ says which contiguous block of the P nodes this process holds, and the
 collectives of ``repro_torch.common.nodes`` join the blocks.
 ``shard_log_to_mesh``'s counterpart is ``NodeGroup.rows``: the drivers
 take the global log and keep the group's rows (``runner._node_log``). ``make_production_mesh``,
-``batch_axes`` and ``make_host_mesh`` serve the language-model substrate
-and have no counterpart yet (ROADMAP.md Queue 1 item 9).
+``batch_axes`` and ``make_host_mesh`` serve the language-model substrate's
+pipeline parallelism and have no counterpart yet (ROADMAP.md Queue 1
+item 9e).
 """
 
 from __future__ import annotations

@@ -1303,3 +1303,123 @@ def test_trainer_doctor_on_card_equals_cpu(cuda_device, tmp_path,
     np.testing.assert_allclose([h["loss"] for h in got["history"]],
                                [h["loss"] for h in want["history"]],
                                rtol=1e-6)
+
+
+# ------------------------------------------------------------ the model
+
+def _f32_smoke(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    return cfg
+
+
+def _recording_routes(monkeypatch):
+    """Record each MoE layer's expert choices (``[n, g, k]`` on the
+    host) as the forward runs."""
+    from repro_torch.models import mlp as M
+
+    routes, real = [], M.moe_apply
+
+    def moe_apply(p, x, *, num_experts, top_k, group_size=256, **kw):
+        n, g = M.moe_groups(x.shape[0] * x.shape[1], group_size)
+        _, _, idx = M.moe_route(p["router"], x.reshape(n, g, -1), top_k)
+        routes.append(idx.cpu())
+        return real(p, x, num_experts=num_experts, top_k=top_k,
+                    group_size=group_size, **kw)
+
+    monkeypatch.setattr(M, "moe_apply", moe_apply)
+    return routes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "gemma2_2b",
+                                  "granite_moe_1b_a400m"])
+def test_model_forward_on_card_equals_cpu(cuda_device, arch, monkeypatch):
+    """The f32 smoke model from one set of parameters on the card and on
+    the CPU: the router's expert choices equal first, then logits within
+    2e-3 (2e-2 for MoE) and the loss; the f32 products stay f32."""
+    from repro_torch.common import tree as tr
+    from repro_torch.models import transformer as T
+
+    cfg = _f32_smoke(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p, _ = T.init_params(cfg, generator=gen, device=cuda_device)
+    cpu_p = tr.tree_map(lambda x: x.cpu(), p)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64), dtype=np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    routes = _recording_routes(monkeypatch)
+    got = T.forward(p, cfg, {k: v.to(cuda_device) for k, v in batch.items()})
+    card_routes, routes[:] = list(routes), []
+    want = T.forward(cpu_p, cfg, batch)
+    for a, b in zip(card_routes, routes):
+        assert torch.equal(a, b)
+    assert len(card_routes) == len(routes)
+    tol = 2e-2 if cfg.family == "moe" else 2e-3
+    assert got.device.type == "cuda" and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    loss, _ = T.lm_loss(p, cfg, {k: v.to(cuda_device)
+                                 for k, v in batch.items()})
+    cpu_loss, _ = T.lm_loss(cpu_p, cfg, batch)
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=tol, atol=tol)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _naive_attention(q, k, v, kind, window=0, cap=None, q_offset=0):
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
+    if cap:
+        s = torch.tanh(s / cap) * cap
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    m = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if kind == "causal":
+        m = kpos[None] <= qpos[:, None]
+    if kind == "local":
+        m = (kpos[None] <= qpos[:, None]) & (kpos[None] > qpos[:, None]
+                                             - window)
+    p = torch.softmax(torch.where(m, s, -1e30), -1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (128, 128, 8, 4, "causal", 0, None, 0),
+    (100, 100, 8, 8, "causal", 0, 30.0, 0),
+    (96, 96, 4, 2, "local", 8, None, 0),
+    (128, 128, 8, 2, "bidir", 0, None, 0),
+    (16, 160, 4, 2, "local", 16, 50.0, 144),
+])
+def test_flash_attention_on_card_equals_naive(cuda_device, case):
+    """f32 against the naive attention within 2e-4 (the TF32 flags off);
+    bf16 (the f32-output product) against the CPU's bf16 within 2e-2."""
+    from repro_torch.models.attention import flash_attention
+
+    sq, sk, hq, hkv, kind, window, cap, qo = case
+    g = torch.Generator().manual_seed(sq + sk + hq)
+    q = torch.randn((2, sq, hq, 16), generator=g)
+    k = torch.randn((2, sk, hkv, 16), generator=g)
+    v = torch.randn((2, sk, hkv, 16), generator=g)
+    kw = dict(kind=kind, window=window, attn_softcap=cap, q_offset=qo,
+              q_chunk=32, kv_chunk=48)
+    dq, dk, dv = (t.to(cuda_device) for t in (q, k, v))
+    got = flash_attention(dq, dk, dv, **kw)
+    torch.testing.assert_close(
+        got, _naive_attention(dq, dk, dv, kind, window, cap, qo),
+        rtol=2e-4, atol=2e-4)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    got_bf = flash_attention(*(t.to(cuda_device) for t in bf), **kw)
+    assert got_bf.dtype == torch.bfloat16
+    torch.testing.assert_close(got_bf.cpu().float(),
+                               flash_attention(*bf, **kw).float(),
+                               rtol=2e-2, atol=2e-2)

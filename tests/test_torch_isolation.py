@@ -108,6 +108,38 @@ def test_bench_refuses_to_fall_back_to_the_cpu(monkeypatch):
             call()
 
 
+def test_model_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """init_params, params_from_numpy, LanguageModel and the caches run on
+    the card unless the caller passes device="cpu" (or "meta"); without a
+    card they raise. forward runs where its parameters are, so a forward
+    without a card is refused where its parameters are made."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("llama3_8b")
+    flat = params_to_numpy(T.init_params(cfg, device="cpu")[0])
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    calls = [
+        lambda: T.init_params(cfg),
+        lambda: T.init_params(cfg, device="cuda"),
+        lambda: T.forward(T.init_params(cfg)[0], cfg, batch),
+        lambda: T.LanguageModel(cfg),
+        lambda: T.LanguageModel(cfg)(batch),
+        lambda: params_from_numpy(flat, cfg),
+        lambda: A.empty_cache(1, 8, 2, 16),
+        lambda: A.empty_ring_cache(1, 8, 2, 16),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert T.forward(params_from_numpy(flat, cfg, device="cpu"), cfg,
+                     batch).shape == (1, 4, cfg.padded_vocab)
+    assert T.init_params(cfg, device="meta")[0]["embed"]["table"].is_meta
+
+
 def test_launcher_runs_a_tiny_job_on_the_cpu():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
