@@ -214,25 +214,33 @@
    ms of one update (CUDA events, median of 5) against its byte bound at
    3.35 TB/s; two rounds of ``tree_ef_compress`` bit-equal to the CPU
    (``q``, ``scale``, estimate, error); peak device memory.
-14. The language-model forward (ROADMAP Queue 1 item 9b), which launches
-   none of K1-K7 (checked), with the card's name, power limit and TF32
-   flags on its lines: (1) llama3-8b (S = 256), gemma2-2b and
-   granite-moe-1b-a400m (S = 512) at full width, 2 layers and f32, from
-   one set of parameters on the card and on the CPU: the MoE router's
-   choices on the card's inputs equal, its choices on the CPU's own
-   inputs explained by their drift, the dropped fractions equal; each
-   block on the card's input to it within 2e-3 (2e-2 for MoE), the head
-   within 2e-3, the logits and loss end to end within 2e-3 (the MoE's
-   loss within 2e-2, its logits printed with the CPU routed by the card's
-   choices); causality at f32 (1e-5; 2e-2 for the MoE). (2) The eight
-   attention architectures at full width and bf16, B = 1, S = 4096 (gemma2
-   8192; internvl2 256 patches + 3840 tokens; whisper 448 tokens over 1500
-   frames; grok-1 2 of 64 layers): logits shape and finite, loss finite,
-   causality (printed where the bits differ), forward ms (median of 3),
-   tokens/s, peak memory, the FLOPs the code computes and their share of
-   the 989 TFLOP/s bf16 peak. (3) llama3-8b's top operators and kernels
-   by device time from one profiled forward in a fresh process
-   (``--model-profile-child``).
+14. The language-model forward (ROADMAP Queue 1 items 9b and 9c), which
+   launches none of K1-K7 (checked), with the card's name, power limit and
+   TF32 flags on its lines: (1) llama3-8b (S = 256), gemma2-2b,
+   granite-moe-1b-a400m, rwkv6-7b (2 layers) and recurrentgemma-2b (3
+   layers: two RG-LRU blocks and a local attention) at full width, S =
+   512 and f32, from one set of parameters on the card and on the CPU:
+   the MoE router's choices on the card's inputs equal, its choices on
+   the CPU's own inputs explained by their drift, the dropped fractions
+   equal; each block on the card's input to it within 2e-3 (2e-2 for
+   MoE), the head within 2e-3, the logits and loss end to end within 2e-3
+   (the MoE's loss within 2e-2, its logits printed with the CPU routed by
+   the card's choices); causality at f32 (1e-5; 2e-2 for the MoE); for
+   the recurrent two, each decode step (RG-LRU, RWKV-6 time-mix and
+   channel-mix) after the block's state on 511 tokens against the block
+   on 512, within 2e-3. (2) The ten architectures at full width and bf16,
+   B = 1, S = 4096 (gemma2 8192; internvl2 256 patches + 3840 tokens;
+   whisper 448 tokens over 1500 frames; grok-1 2 of 64 layers): logits
+   shape and finite, loss finite, causality (printed where the bits
+   differ), forward ms (median of 3), tokens/s, peak memory, the FLOPs
+   the code computes and their share of the 989 TFLOP/s bf16 peak. (3)
+   The top operators and kernels by device time of one profiled forward
+   in a fresh process (``--model-profile-child ARCH LAYERS``): llama3-8b
+   and recurrentgemma-2b at full depth, rwkv6-7b at 2 layers with one
+   block profiled alone (its launches x 30 more layers give a full
+   forward's), and each recurrent scan's launches. (4) The RG-LRU scan
+   over ``[1, 4096, 2560]`` and the WKV loop over ``[1, 4096, 64, 64]``
+   alone at f32, ms (median of 5, CUDA events) against their bounds.
 
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
@@ -334,23 +342,35 @@ LLAMA_LAYER = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
                "attn_norm": (4096,), "mlp_norm": (4096,)}
 LLAMA_LAYER_PARAMS = 218_112_000
 ADAMW_STEPS, ADAMW_TURNS, ADAMW_SEED = 3, 5, 26
-# phase 14: the language-model forward (ROADMAP Queue 1 item 9b). (1)
+# phase 14: the language-model forward (ROADMAP Queue 1 items 9b, 9c). (1)
 # card against CPU at f32, full width, 2 layers (gemma2: one local, one
-# global); (2) each attention architecture at full width and the configs'
-# bf16, B = 1, S = 4096 (train_4k, models/steps.py:37), gemma2 at 8192 so
-# that its 4096-token window masks, internvl2 256 patches + 3840 tokens,
-# whisper 448 decoder tokens over 1500 frames, grok-1 at 2 of 64 layers
-# (631 GB at full depth); (3) llama3-8b's top device ops
+# global; recurrentgemma 3: two RG-LRU blocks and its local attention);
+# (2) each architecture at full width and the configs' bf16, B = 1, S =
+# 4096 (train_4k, models/steps.py:37), gemma2 at 8192 so that its
+# 4096-token window masks, internvl2 256 patches + 3840 tokens, whisper
+# 448 decoder tokens over 1500 frames, grok-1 at 2 of 64 layers (631 GB at
+# full depth); (3) the top device ops of llama3-8b, recurrentgemma-2b and
+# rwkv6-7b at 2 layers (a full-depth trace would hold about a million
+# kernel records), each profiled in a fresh process; (4) the recurrent
+# scans alone at one layer's shape
 MODEL_SEED = 27
-MODEL_CHECK_LAYERS = 2
-MODEL_CHECKS = (("llama3_8b", 256), ("gemma2_2b", 512),
-                ("granite_moe_1b_a400m", 512))
+MODEL_CHECKS = (("llama3_8b", 2, 256), ("gemma2_2b", 2, 512),
+                ("granite_moe_1b_a400m", 2, 512),
+                ("recurrentgemma_2b", 3, 512), ("rwkv6_7b", 2, 512))
 MODEL_RUNS = (("llama3_8b", None, 4096), ("gemma2_2b", None, 8192),
               ("qwen1_5_4b", None, 4096), ("granite_20b", None, 4096),
               ("granite_moe_1b_a400m", None, 4096),
               ("grok_1_314b", 2, 4096), ("internvl2_1b", None, 4096),
-              ("whisper_small", None, 448))
+              ("whisper_small", None, 448),
+              ("recurrentgemma_2b", None, 4096), ("rwkv6_7b", None, 4096))
+MODEL_PROFILES = (("llama3_8b", None), ("recurrentgemma_2b", None),
+                  ("rwkv6_7b", 2))
 MODEL_TURNS = 3
+SCAN_TURNS = 5
+SCAN_SEQ = 4096
+DECODE_LEN = 512
+RECURRENT_ARCHS = ("recurrentgemma_2b", "rwkv6_7b")
+PEAK_F32 = 67e12                   # f32 FLOP/s off the tensor cores
 MODEL_TOP_OPS = 12
 PEAK_BF16 = 989e12                 # dense bf16 FLOP/s, H100 SXM data sheet
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
@@ -4042,19 +4062,41 @@ def causality(params, cfg, batch: dict) -> float:
 def forward_flops(cfg, batch: dict) -> int:
     """The matmul FLOPs of one forward as the code computes them (every kv
     chunk, masked or not; the MoE's E x C slots a group; the dispatch and
-    combine products), counted by ``FlopCounterMode`` over the same
-    forward on the meta device."""
+    combine products; the WKV loop's products a token), counted by
+    ``FlopCounterMode`` over the same forward on the meta device. A
+    stacked model (its pattern repeated n times) is counted at one
+    repetition, each layer's FLOPs (its cross-attention projections
+    included) taken as it runs: the other n - 1 repetitions run the same
+    ops on the same shapes, so the total is exact. (rwkv6-7b's 4,096-step
+    loop takes seconds a layer on meta.)"""
+    import dataclasses
+
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.models import transformer as T
 
+    period = cfg.uniform_period
+    n_rep = cfg.num_layers // period if period < cfg.num_layers else 1
+    one = dataclasses.replace(cfg, num_layers=period) if n_rep > 1 else cfg
     meta = torch.device("meta")
-    params, _ = T.init_params(cfg, device=meta)
+    params, _ = T.init_params(one, device=meta)
     shapes = {k: torch.empty(v.shape, dtype=v.dtype, device=meta)
               for k, v in batch.items()}
-    with FlopCounterMode(display=False) as counter:
-        T.forward(params, cfg, shapes)
-    return counter.get_total_flops()
+    per_layer, real = [], T._layer_params
+
+    def layer_params(p, c):
+        for item in real(p, c):
+            before = counter.get_total_flops()
+            yield item
+            per_layer.append(counter.get_total_flops() - before)
+
+    T._layer_params = layer_params
+    try:
+        with FlopCounterMode(display=False) as counter:
+            T.forward(params, one, shapes)
+    finally:
+        T._layer_params = real
+    return counter.get_total_flops() + (n_rep - 1) * sum(per_layer)
 
 
 @contextlib.contextmanager
@@ -4104,9 +4146,9 @@ def model_card_vs_cpu(device, card: str) -> dict:
 
     cpu = torch.device("cpu")
     out = {}
-    for arch, seq in MODEL_CHECKS:
+    for arch, layers, seq in MODEL_CHECKS:
         t0 = time.perf_counter()
-        cfg = model_cfg(arch, MODEL_CHECK_LAYERS, f32=True)
+        cfg = model_cfg(arch, layers, f32=True)
         moe = cfg.family == "moe"
         tol = 2e-2 if moe else 2e-3
         gen = torch.Generator(device=device).manual_seed(MODEL_SEED)
@@ -4174,12 +4216,61 @@ def model_card_vs_cpu(device, card: str) -> dict:
                      + f"and loss {loss_err:.3e} (bar {tol}); f32 causality "
                        f"max |diff| {causal:.3e} (bar {causal_bar}); "
                        f"{out[arch]['seconds']:.1f} s")
+        if arch in RECURRENT_ARCHS:
+            with torch.inference_mode():
+                out[arch]["decode"] = decode_vs_block(arch, p, cfg, device,
+                                                      card)
         del p, got, want, batch
     return out
 
 
+def decode_vs_block(arch: str, params, cfg, device, card: str) -> dict:
+    """On the card, full width and f32, each recurrent function of the
+    first layer: the block with its state over the first DECODE_LEN - 1
+    tokens of a seeded normal input, then one decode step on the last
+    token, against the block over all DECODE_LEN at that token, within
+    2e-3 (JAX's decode bar, ``tests/test_models.py``)."""
+    from repro_torch.models import rglru as R
+    from repro_torch.models import rwkv6 as W
+    from repro_torch.models import transformer as T
+
+    _, lp = next(T._layer_params(params, cfg))
+    g = torch.Generator(device=device).manual_seed(MODEL_SEED)
+    x = torch.randn((1, DECODE_LEN, cfg.d_model), generator=g, device=device)
+    s = DECODE_LEN - 1
+    errs = {}
+    if cfg.mixer_of(0) == "rglru":
+        full = R.rglru_block(lp["mixer"], x)
+        _, state = R.rglru_block(lp["mixer"], x[:, :s], return_state=True)
+        step, _ = R.rglru_decode_step(lp["mixer"], x[:, s:], state)
+        errs["rglru_decode_step"] = close_f32(
+            f"{arch} rglru_decode_step after {s} tokens", step,
+            full[:, s:].cpu(), 2e-3)
+    else:
+        hs = cfg.rwkv_head_size
+        full = W.rwkv6_time_mix(lp["mixer"], x, hs)
+        _, (st, shift) = W.rwkv6_time_mix(lp["mixer"], x[:, :s], hs,
+                                          return_state=True)
+        step, _, _ = W.rwkv6_time_mix_step(lp["mixer"], x[:, s:], st, shift,
+                                           hs)
+        errs["rwkv6_time_mix_step"] = close_f32(
+            f"{arch} rwkv6_time_mix_step after {s} tokens", step,
+            full[:, s:].cpu(), 2e-3)
+        full, _ = W.rwkv6_cmix(lp["mlp"], x)
+        _, last = W.rwkv6_cmix(lp["mlp"], x[:, :s])
+        step, _ = W.rwkv6_cmix(lp["mlp"], x[:, s:], shift=last)
+        errs["rwkv6_cmix(shift)"] = close_f32(
+            f"{arch} rwkv6_cmix with the shift after {s} tokens", step,
+            full[:, s:].cpu(), 2e-3)
+    log("model", f"{card}: {arch} f32 layer 0, the block on {s} tokens then "
+                 f"one decode step against the block on {DECODE_LEN}: "
+                 + ", ".join(f"{k} max |diff| {v:.3e}"
+                             for k, v in errs.items()) + " (bar 2e-3)")
+    return errs
+
+
 def model_full_width(device, card: str, fallback: dict) -> list:
-    """(2) Every attention architecture at full width and its bf16, B = 1,
+    """(2) Every architecture at full width and its bf16, B = 1,
     forward and lm_loss: shapes, finite values, causality; the median of
     MODEL_TURNS timed forwards (CUDA events) after a warm-up, tokens/s,
     peak device memory and the share of the bf16 peak."""
@@ -4194,6 +4285,7 @@ def model_full_width(device, card: str, fallback: dict) -> list:
         p, _ = T.init_params(cfg, generator=gen, device=device)
         batch = model_batch(cfg, seq, device, MODEL_SEED)
         param_gib = tr.tree_bytes(p) / 2**30
+        n_params = tr.tree_count_params(p)
         n_tok = batch["tokens"].shape[1]
         with torch.inference_mode():
             sync(device)
@@ -4232,6 +4324,7 @@ def model_full_width(device, card: str, fallback: dict) -> list:
         row = dict(arch=arch, layers=cfg.num_layers, seq=seq, tokens=n_tok,
                    ms=ms, times=times, tokens_per_s=seq / (ms / 1e3),
                    peak_gib=peak / 2**30, param_gib=param_gib,
+                   params=n_params,
                    before_gib=before / 2**30, flops=flops,
                    peak_share=flops / (ms / 1e3) / PEAK_BF16,
                    loss=float(loss), logit_max=float(metrics["logit_max"]),
@@ -4249,7 +4342,8 @@ def model_full_width(device, card: str, fallback: dict) -> list:
                        f"{flops / 1e12:.3f} TFLOP = "
                        f"{row['peak_share']:.4f} of the 989 TFLOP/s bf16 "
                        f"peak; peak {row['peak_gib']:.3f} GiB (params "
-                       f"{param_gib:.3f}); loss {row['loss']:.6g}; "
+                       f"{param_gib:.3f}, {n_params:,}); loss "
+                       f"{row['loss']:.6g}; "
                        f"causality max |diff| {causal:.3e}; "
                        f"{row['seconds']:.1f} s")
         del p, batch, loss, metrics
@@ -4257,31 +4351,88 @@ def model_full_width(device, card: str, fallback: dict) -> list:
     return rows
 
 
-def model_profile_child() -> int:
-    """(3) In a fresh process: llama3-8b at full depth and bf16, one
-    warm-up forward, then one profiled forward; prints the top device ops
-    as one JSON line."""
+def scan_case(arch: str, device):
+    """The recurrent scan of one full-width layer of ``arch`` (B = 1, S =
+    SCAN_SEQ, f32, seeded inputs) as ``(name, call, bytes, operations)``:
+    RG-LRU's ``associative_scan`` of ``(a, b)``, a in [0, 1) and b normal,
+    over ``[1, S, lru_width]``; the WKV loop over ``[1, S, H, hs]`` (w in
+    [0, 1), r, k, v normal). Bytes: inputs read once, outputs written
+    once. Operations: the sequential recurrence's, 3 a scanned element
+    (RG-LRU), and a token's outer product, bonus, add, r-product (2 a
+    state element), decay and add, 7 a state element (WKV)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru as R
+    from repro_torch.models import rwkv6 as W
+
+    cfg = get_config(arch)
+    g = torch.Generator(device=device).manual_seed(MODEL_SEED)
+    if cfg.mixer_of(0) == "rglru":
+        shape = (1, SCAN_SEQ, cfg.lru_width)
+        a = torch.rand(shape, generator=g, device=device)
+        b = torch.randn(shape, generator=g, device=device)
+        return ("rglru associative_scan", lambda: R.associative_scan(
+            R._linear_combine, (a, b), dim=1), 4 * a.numel() * 4,
+            3 * a.numel())
+    hs = cfg.rwkv_head_size
+    h = cfg.d_model // hs
+    shape = (1, SCAN_SEQ, h, hs)
+    r, k, v = (torch.randn(shape, generator=g, device=device)
+               for _ in range(3))
+    w = torch.rand(shape, generator=g, device=device)
+    u = torch.randn((h, hs), generator=g, device=device)
+    state = h * hs * hs
+    return ("rwkv6 wkv_recurrence", lambda: W.wkv_recurrence(
+        r, k, v, w, u), (5 * r.numel() + u.numel() + state) * 4,
+        7 * SCAN_SEQ * state)
+
+
+def recurrent_scans(device, card: str) -> dict:
+    """(4) Each recurrent scan alone (``scan_case``): the median of
+    SCAN_TURNS calls after a warm-up, CUDA events, against its bound: the
+    larger of its bytes at 3.35 TB/s and its operations at the 67 TFLOP/s
+    f32 rate."""
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        name, call, nbytes, ops = scan_case(arch, device)
+        with torch.inference_mode():
+            call()
+            times = []
+            for _ in range(SCAN_TURNS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                call()
+                end.record()
+                torch.cuda.synchronize(device)
+                times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
+        out[arch] = dict(name=name, ms=ms, times=times, bound_ms=bound,
+                         bytes=nbytes, ops=ops)
+        log("model", f"{card}: {arch} one layer's {name} alone, S="
+                     f"{SCAN_SEQ}, f32: {ms:.3f} ms (median of {SCAN_TURNS}, "
+                     f"CUDA events; {[round(t, 3) for t in times]}), bound "
+                     f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+                     f"{ops / 1e9:.3f} GFLOP at 67 TFLOP/s f32)")
+    return out
+
+
+def profiled(call, device, ops: bool = True) -> dict:
+    """One call of ``call`` under torch.profiler (after the caller's
+    warm-up): wall and device-busy ms, kernel launches, the top kernels
+    and (with ``ops``, which records the host's operators too) the top
+    aten operators by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.models import transformer as T
-
-    device = torch.device("cuda")
-    arch, layers, seq = MODEL_RUNS[0]
-    cfg = model_cfg(arch, layers)
-    gen = torch.Generator(device=device).manual_seed(MODEL_SEED)
-    p, _ = T.init_params(cfg, generator=gen, device=device)
-    batch = model_batch(cfg, seq, device, MODEL_SEED)
-    with torch.inference_mode():
-        T.forward(p, cfg, batch)
+    activities = [ProfilerActivity.CUDA]
+    if ops:
+        activities.append(ProfilerActivity.CPU)
+    with tprofile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        call()
         sync(device)
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            T.forward(p, cfg, batch)
-            sync(device)
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, ops = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -4296,34 +4447,92 @@ def model_profile_child() -> int:
             ops.append(row)
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
-    print(json.dumps({"arch": arch, "seq": seq, "wall_ms": wall_ms,
-                      "busy_ms": sum(r[0] for r in kernels),
-                      "launches": sum(r[1] for r in kernels),
-                      "top": kernels[:MODEL_TOP_OPS],
-                      "top_ops": ops[:MODEL_TOP_OPS]}))
+    return {"wall_ms": wall_ms, "busy_ms": sum(r[0] for r in kernels),
+            "launches": sum(r[1] for r in kernels),
+            "top": kernels[:MODEL_TOP_OPS], "top_ops": ops[:MODEL_TOP_OPS]}
+
+
+def model_profile_child(arch: str, layers: str) -> int:
+    """(3) In a fresh process: ``arch`` in bf16 at its MODEL_RUNS length,
+    at full depth (``layers`` "full") or cut to ``layers``, one warm-up
+    forward, then one profiled forward; for a model cut in depth (its
+    pattern of period 1), one profiled block too, which gives the launches
+    of a full-depth forward; for a recurrent model, its scan alone
+    (``scan_case``). Prints one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models import transformer as T
+
+    device = torch.device("cuda")
+    seq = next(q for a, _, q in MODEL_RUNS if a == arch)
+    cfg = model_cfg(arch, None if layers == "full" else int(layers))
+    full = model_cfg(arch)
+    gen = torch.Generator(device=device).manual_seed(MODEL_SEED)
+    p, _ = T.init_params(cfg, generator=gen, device=device)
+    batch = model_batch(cfg, seq, device, MODEL_SEED)
+    out = {"arch": arch, "layers": cfg.num_layers, "seq": seq}
+    with torch.inference_mode():
+        T.forward(p, cfg, batch)
+        sync(device)
+        out.update(profiled(lambda: T.forward(p, cfg, batch), device))
+        out["full_launches"] = out["launches"]
+        if full.num_layers > cfg.num_layers:
+            # every layer of a period-1 model runs the same ops: one
+            # block's launches stand for each layer left out
+            check(full.uniform_period == 1, f"{arch}: cut to {layers} of "
+                  f"{full.num_layers} layers, its pattern is not period 1")
+            _, lp = next(T._layer_params(p, cfg))
+            x = torch.randn((1, seq, cfg.d_model), generator=gen,
+                            device=device).to(torch.bfloat16)
+            T.block_apply(lp, cfg, 0, x)
+            sync(device)
+            out["block_launches"] = profiled(
+                lambda: T.block_apply(lp, cfg, 0, x), device,
+                ops=False)["launches"]
+            out["full_launches"] += ((full.num_layers - cfg.num_layers)
+                                     * out["block_launches"])
+        if arch in RECURRENT_ARCHS:
+            name, call, _, _ = scan_case(arch, device)
+            call()
+            sync(device)
+            scan = profiled(call, device, ops=False)
+            out["scan"] = dict(name=name, launches=scan["launches"],
+                               busy_ms=scan["busy_ms"],
+                               wall_ms=scan["wall_ms"])
+    print(json.dumps(out))
     return 0
 
 
-def model_profile(card: str) -> dict:
+def model_profile(card: str, arch: str, layers) -> dict:
+    t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"),
-         "--model-profile-child"], capture_output=True, text=True,
-        timeout=300, cwd=ROOT)
-    check(out.returncode == 0, f"model profile child failed: "
+         "--model-profile-child", arch,
+         "full" if layers is None else str(layers)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    check(out.returncode == 0, f"model profile child ({arch}) failed: "
                                f"{out.stderr[-2000:]}")
     prof = json.loads(out.stdout.strip().splitlines()[-1])
     busy, wall = prof["busy_ms"], prof["wall_ms"]
-    check(busy > 0, "model profile: no device time recorded")
-    log("model", f"{card}: {prof['arch']} S={prof['seq']}, one profiled "
-                 f"forward in a fresh process: wall {wall:.3f} ms, device "
-                 f"busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
-                 f"{prof['launches']} kernels; top operators by the device "
-                 f"time of their kernels:")
+    check(busy > 0, f"model profile ({arch}): no device time recorded")
+    full = prof["full_launches"]
+    log("model", f"{card}: {arch} {prof['layers']} layers, S={prof['seq']}, "
+                 f"one profiled forward in a fresh process: wall {wall:.3f} "
+                 f"ms, device busy {busy:.3f} ms, idle share "
+                 f"{1 - busy / wall:.4f}, {prof['launches']} kernels"
+                 + (f" ({prof['block_launches']} a layer: {full} at full "
+                    f"depth)" if "block_launches" in prof else "")
+                 + f"; the child took {time.perf_counter() - t0:.1f} s; "
+                   f"top operators by the device time of their kernels:")
     for ms, count, key in prof["top_ops"]:
         log("model", f"{ms:10.4f} ms ({ms / busy:.4f}) x{count:<5d} {key}")
     log("model", f"{card}: top kernels:")
     for ms, count, key in prof["top"]:
         log("model", f"{ms:10.4f} ms ({ms / busy:.4f}) x{count:<5d} {key}")
+    if "scan" in prof:
+        sc = prof["scan"]
+        log("model", f"{card}: {arch} {sc['name']} alone, profiled: "
+                     f"{sc['launches']} kernels, device busy "
+                     f"{sc['busy_ms']:.3f} ms of {sc['wall_ms']:.3f} wall")
     return prof
 
 
@@ -4341,19 +4550,32 @@ def model_phase(device, card: str) -> dict:
     reset_launch_counts()
     f32 = model_card_vs_cpu(device, card)
     full = model_full_width(device, card, f32)
+    scans = recurrent_scans(device, card)
     launched = {k: v for k, v in launch_counts().items() if v}
     check(not launched, f"the model forward launched {launched}")
-    prof = model_profile(card)
+    profs = {arch: model_profile(card, arch, layers)
+             for arch, layers in MODEL_PROFILES}
+    for row in full:
+        if row["arch"] in RECURRENT_ARCHS:
+            arch, sc = row["arch"], scans[row["arch"]]
+            log("model", f"{card}: {arch} bf16 {row['layers']} layers S="
+                         f"{row['seq']}: forward {row['ms']:.3f} ms, "
+                         f"{row['tokens_per_s']:.1f} tokens/s, "
+                         f"{row['peak_share']:.4f} of the bf16 peak, "
+                         f"{profs[arch]['full_launches']} kernel launches a "
+                         f"forward; one layer's {sc['name']} {sc['ms']:.3f} "
+                         f"ms in {profs[arch]['scan']['launches']} launches "
+                         f"(bound {sc['bound_ms']:.4f} ms)")
     log("model", f"{card}: {tf32_state()}; phase 14 took "
                  f"{time.perf_counter() - t0:.1f} s")
-    return dict(f32=f32, full=full, profile=prof)
+    return dict(f32=f32, full=full, scans=scans, profiles=profs)
 
 
 def main() -> int:
     if sys.argv[1:] == ["--sanitizer-child"]:
         return sanitizer_child()
-    if sys.argv[1:] == ["--model-profile-child"]:
-        return model_profile_child()
+    if sys.argv[1:2] == ["--model-profile-child"]:
+        return model_profile_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)

@@ -19,14 +19,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # Parallel-tree container: params["w"], axes["w"] = ("embed", "ffn")
 Params = dict
 
 
 class ParamRng:
-    """Where init functions draw from: f32 standard normals from
-    ``generator`` (on its own device), scaled in f32, cast to the leaf's
+    """Where init functions draw from: f32 standard normals (or uniforms)
+    from ``generator`` (on its own device), scaled in f32, cast to the leaf's
     dtype and placed on ``device``. A leaf of three or more dims (a stack of
     experts) is drawn one leading slice at a time, so no f32 copy of the
     whole leaf is ever held. On the ``meta`` device nothing is drawn."""
@@ -54,6 +55,18 @@ class ParamRng:
             out[i] = self._draw(shape[1:], std, dtype)
         return out
 
+    def uniform(self, shape, lo: float, hi: float, dtype) -> torch.Tensor:
+        """f32 draws from ``[lo, hi)``, as ``u * (hi - lo) + lo`` in f32,
+        cast to ``dtype``."""
+        shape = tuple(shape)
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        gen_device = (self.generator.device if self.generator is not None
+                      else "cpu")
+        u = torch.rand(shape, generator=self.generator, device=gen_device,
+                       dtype=torch.float32)
+        return (u * (hi - lo) + lo).to(device=self.device, dtype=dtype)
+
     def zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=dtype, device=self.device)
 
@@ -71,6 +84,17 @@ def promoted(*xs: torch.Tensor):
     return tuple(x.to(dt) for x in xs)
 
 
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the operands' promoted dtype."""
+    x, w = promoted(x, w)
+    return x @ w
+
+
+def gelu(z: torch.Tensor) -> torch.Tensor:
+    """JAX's ``jax.nn.gelu`` (``approximate=True``): the tanh form."""
+    return F.gelu(z, approximate="tanh")
+
+
 def dense_init(rng: ParamRng, d_in: int, d_out: int, axes: tuple,
                dtype=torch.bfloat16, bias: bool = False,
                bias_axis: Optional[str] = None):
@@ -84,8 +108,7 @@ def dense_init(rng: ParamRng, d_in: int, d_out: int, axes: tuple,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    x, w = promoted(x, p["w"])
-    y = x @ w
+    y = mm(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y

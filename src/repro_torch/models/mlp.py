@@ -21,11 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamRng, dense_init, promoted
-
-
-def _gelu(z: torch.Tensor) -> torch.Tensor:
-    return F.gelu(z, approximate="tanh")
+from repro_torch.models.layers import ParamRng, dense_init, gelu, mm, promoted
 
 
 def mlp_init(rng: ParamRng, d_model: int, d_ff: int, kind: str,
@@ -49,19 +45,14 @@ def mlp_init(rng: ParamRng, d_model: int, d_ff: int, kind: str,
     raise ValueError(kind)
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    x, w = promoted(x, w)
-    return x @ w
-
-
 def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
-        act = F.silu if kind == "swiglu" else _gelu
-        h = act(_mm(x, p["gate"]["w"])) * _mm(x, p["up"]["w"])
-        return _mm(h, p["down"]["w"])
+        act = F.silu if kind == "swiglu" else gelu
+        h = act(mm(x, p["gate"]["w"])) * mm(x, p["up"]["w"])
+        return mm(h, p["down"]["w"])
     if kind == "gelu":
-        h = _gelu(_mm(x, p["up"]["w"]) + p["up"]["b"])
-        return _mm(h, p["down"]["w"]) + p["down"]["b"]
+        h = gelu(mm(x, p["up"]["w"]) + p["up"]["b"])
+        return mm(h, p["down"]["w"]) + p["down"]["b"]
     raise ValueError(kind)
 
 

@@ -1,4 +1,4 @@
-"""The unified LM: the forward of the attention architectures.
+"""The unified LM: the forward of the ten architectures.
 
 Counterpart of the forward half of ``repro/models/transformer.py``:
 ``init_params`` + ``forward`` (teacher-forcing logits) + ``lm_loss``. The
@@ -14,10 +14,11 @@ with a leading ``[n_rep]``) and run slot by slot for each repeat, as JAX's
 ``jax.checkpoint`` (rematerialisation) changes no forward value and has no
 counterpart here.
 
-Not here yet: the recurrent mixers (``rglru``, ``rwkv6``) and the
-``rwkv_cmix`` MLP raise ``NotImplementedError`` (ROADMAP Queue 1 item 9c),
-and the fused prefill (``collect_len``, ``forward_with_cache``) waits for
-decoding (item 9d).
+The mixers are attention (global, local, bidirectional), RG-LRU
+(``rglru.py``) and RWKV-6 time-mix (``rwkv6.py``); the MLPs the gated and
+plain ones, the MoE and RWKV-6's channel-mix. Not here yet: the fused
+prefill (``collect_len``, ``forward_with_cache``) waits for decoding
+(ROADMAP Queue 1 item 9d).
 """
 
 from __future__ import annotations
@@ -31,21 +32,16 @@ from repro_torch.common.nodes import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import constrain
 
 ATTN_MIXERS = ("attn", "local_attn", "bidir_attn")
-_RECURRENT = ("rglru", "rwkv6", "rwkv_cmix")
 
 
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"the {kind!r} block is not ported yet (ROADMAP Queue 1 item 9c: "
-        f"recurrent mixers)")
 
 
 def _norm_init(rng: L.ParamRng, cfg: ModelConfig, d: int):
@@ -85,10 +81,6 @@ def block_init(rng: L.ParamRng, cfg: ModelConfig, layer: int,
     """One residual block: mixer + mlp (+ cross-attn for enc-dec decoder)."""
     mixer = cfg.mixer_of(layer)
     mlp_kind = cfg.mlp_of(layer)
-    if mixer in _RECURRENT or mlp_kind in _RECURRENT:
-        raise _not_ported(mixer if mixer in _RECURRENT else mlp_kind)
-    if mixer not in ATTN_MIXERS:
-        raise ValueError(mixer)
     dt = _dtype(cfg.param_dtype)
     p, a = {}, {}
     p["norm1"], a["norm1"] = _norm_init(rng, cfg, cfg.d_model)
@@ -96,10 +88,24 @@ def block_init(rng: L.ParamRng, cfg: ModelConfig, layer: int,
     if cfg.use_post_norm:
         p["post_norm1"], a["post_norm1"] = _norm_init(rng, cfg, cfg.d_model)
         p["post_norm2"], a["post_norm2"] = _norm_init(rng, cfg, cfg.d_model)
-    p["mixer"], a["mixer"] = _attn_init(rng, cfg)
+    if mixer in ATTN_MIXERS:
+        p["mixer"], a["mixer"] = _attn_init(rng, cfg)
+    elif mixer == "rglru":
+        p["mixer"], a["mixer"] = rglru_lib.rglru_init(
+            rng, cfg.d_model, cfg.lru_width or cfg.d_model,
+            cfg.conv_width, dt)
+    elif mixer == "rwkv6":
+        p["mixer"], a["mixer"] = rwkv_lib.rwkv6_init(
+            rng, cfg.d_model, cfg.rwkv_head_size, dt)
+    else:
+        raise ValueError(mixer)
+
     if mlp_kind == "moe":
         p["mlp"], a["mlp"] = mlp_lib.moe_init(
             rng, cfg.d_model, cfg.d_ff, cfg.num_experts, dt)
+    elif mlp_kind == "rwkv_cmix":
+        p["mlp"], a["mlp"] = rwkv_lib.rwkv6_cmix_init(
+            rng, cfg.d_model, cfg.d_ff, dt)
     else:
         p["mlp"], a["mlp"] = mlp_lib.mlp_init(
             rng, cfg.d_model, cfg.d_ff, mlp_kind, dt)
@@ -162,11 +168,16 @@ def block_apply(p, cfg: ModelConfig, layer: int, x,
             "yet (ROADMAP Queue 1 item 9d: steps and decoding)")
     mixer = cfg.mixer_of(layer)
     mlp_kind = cfg.mlp_of(layer)
-    if mixer in _RECURRENT or mlp_kind in _RECURRENT:
-        raise _not_ported(mixer if mixer in _RECURRENT else mlp_kind)
 
     h = _norm(cfg, p["norm1"], x)
-    y, _ = _attn_apply_train(p["mixer"], cfg, h, mixer)
+    if mixer in ATTN_MIXERS:
+        y, _ = _attn_apply_train(p["mixer"], cfg, h, mixer)
+    elif mixer == "rglru":
+        y = rglru_lib.rglru_block(p["mixer"], h)
+    elif mixer == "rwkv6":
+        y = rwkv_lib.rwkv6_time_mix(p["mixer"], h, cfg.rwkv_head_size)
+    else:
+        raise ValueError(mixer)
     if cfg.use_post_norm:
         y = _norm(cfg, p["post_norm1"], y)
     x = x + y
@@ -185,6 +196,8 @@ def block_apply(p, cfg: ModelConfig, layer: int, x,
             top_k=cfg.num_experts_per_tok,
             capacity_factor=cfg.moe_capacity_factor,
             group_size=cfg.moe_group_size)
+    elif mlp_kind == "rwkv_cmix":
+        y, _ = rwkv_lib.rwkv6_cmix(p["mlp"], h)
     else:
         y = mlp_lib.mlp_apply(p["mlp"], h, mlp_kind)
     if cfg.use_post_norm:

@@ -1,10 +1,10 @@
 """The port's ten configurations against the JAX package's.
 
 The published numbers (``tests/test_arch_smoke.py:67-105``), the derived
-numbers of all ten configs equal to JAX's, and, for the eight attention
-architectures at full size, the port's ``init_params`` on the ``meta``
-device (no memory: grok-1 is 315,684,034,560 parameters) against
-``jax.eval_shape`` of JAX's: leaf paths, shapes and dtypes exactly.
+numbers of all ten configs equal to JAX's, and, for all ten at full
+size, the port's ``init_params`` on the ``meta`` device (no memory:
+grok-1 is 315,684,034,560 parameters) against ``jax.eval_shape`` of
+JAX's: leaf paths, shapes and dtypes exactly.
 """
 
 import jax
@@ -99,7 +99,7 @@ def test_config_equals_jax(arch, smoke):
         assert ours.mlp_of(layer) == theirs.mlp_of(layer)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_meta_init_equals_jax_eval_shape(arch):
     """Leaf paths, shapes and dtypes of the full config, with no memory;
     the logical axes tree equal to JAX's."""
@@ -123,12 +123,10 @@ def test_meta_init_equals_jax_eval_shape(arch):
     assert axes == jax_axes[0]
     if arch == "grok_1_314b":
         assert tree_count_params(params) == 315_684_034_560
-
-
-def test_meta_init_of_recurrent_archs_raises_naming_9c():
-    for arch in ("recurrentgemma_2b", "rwkv6_7b"):
-        with pytest.raises(NotImplementedError, match="9c"):
-            T.init_params(get_config(arch), device="meta")
+    if arch == "recurrentgemma_2b":
+        assert tree_count_params(params) == 2_894_574_080
+    if arch == "rwkv6_7b":
+        assert tree_count_params(params) == 7_577_018_368
 
 
 def test_meta_tensors_hold_no_memory():

@@ -1339,7 +1339,8 @@ def _recording_routes(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3_8b", "gemma2_2b",
-                                  "granite_moe_1b_a400m"])
+                                  "granite_moe_1b_a400m",
+                                  "recurrentgemma_2b", "rwkv6_7b"])
 def test_model_forward_on_card_equals_cpu(cuda_device, arch, monkeypatch):
     """The f32 smoke model from one set of parameters on the card and on
     the CPU: the router's expert choices equal first, then logits within
@@ -1370,6 +1371,94 @@ def test_model_forward_on_card_equals_cpu(cuda_device, arch, monkeypatch):
     torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=tol, atol=tol)
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 7, 513, 4096])
+def test_rglru_scan_on_card_equals_cpu(cuda_device, s):
+    """The associative scan is products and sums of the same f32 pairs in
+    the same association on both, with subnormals kept on both: equal
+    bits."""
+    from repro_torch.models import rglru as R
+
+    g = torch.Generator().manual_seed(s)
+    a = torch.rand((2, s, 96), generator=g)
+    b = torch.randn((2, s, 96), generator=g)
+    got = R.associative_scan(R._linear_combine, (a.to(cuda_device),
+                                                 b.to(cuda_device)), dim=1)
+    want = R.associative_scan(R._linear_combine, (a, b), dim=1)
+    for x, y in zip(got, want):
+        assert x.device.type == cuda_device.type
+        assert torch.equal(x.cpu(), y)
+
+
+def _small_params(init, *args):
+    """f32 parameters of a small mixer on the CPU; the leaves initialised
+    to constants (biases, mixes, the group norm, the conv) get seeded
+    draws added, so that every parameter matters."""
+    from repro_torch.models.layers import ParamRng
+
+    p, _ = init(ParamRng(torch.Generator().manual_seed(1), "cpu"), *args,
+                torch.float32)
+    g = torch.Generator().manual_seed(2)
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k.startswith(("maa_", "ln_x_", "conv_")) or k == "b":
+                v.add_(0.3 * torch.randn(v.shape, generator=g))
+        return tree
+
+    return walk(p)
+
+
+@pytest.mark.cuda
+def test_recurrent_mixers_on_card_equal_cpu(cuda_device):
+    """The RG-LRU block and the RWKV-6 time-mix (the WKV loop) and
+    channel-mix at f32 from one set of parameters, with their states, on
+    the card and on the CPU within 2e-4; each decode step after the
+    block's state within 2e-4 of the CPU's."""
+    from repro_torch.common import tree as tr
+    from repro_torch.models import rglru as R
+    from repro_torch.models import rwkv6 as W
+
+    tol = dict(rtol=2e-4, atol=2e-4)
+    x = torch.randn((2, 40, 64), generator=torch.Generator().manual_seed(3))
+    dx = x.to(cuda_device)
+
+    def on_card(tree):
+        return tr.tree_map(lambda z: z.to(cuda_device), tree)
+
+    p = _small_params(R.rglru_init, 64, 48, 4)
+    got, gs = R.rglru_block(on_card(p), dx[:, :39], return_state=True)
+    want, ws = R.rglru_block(p, x[:, :39], return_state=True)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    for a, b in zip(gs, ws):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    got, _ = R.rglru_decode_step(on_card(p), dx[:, 39:], gs)
+    want, _ = R.rglru_decode_step(p, x[:, 39:], ws)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+    p = _small_params(W.rwkv6_init, 64, 8)
+    got, (gs, gshift) = W.rwkv6_time_mix(on_card(p), dx[:, :39], 8,
+                                         return_state=True)
+    want, (ws, wshift) = W.rwkv6_time_mix(p, x[:, :39], 8,
+                                          return_state=True)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    torch.testing.assert_close(gs.cpu(), ws, **tol)
+    assert torch.equal(gshift.cpu(), wshift)
+    got, _, _ = W.rwkv6_time_mix_step(on_card(p), dx[:, 39:], gs, gshift, 8)
+    want, _, _ = W.rwkv6_time_mix_step(p, x[:, 39:], ws, wshift, 8)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+    p = _small_params(W.rwkv6_cmix_init, 64, 128)
+    got, glast = W.rwkv6_cmix(on_card(p), dx[:, :39])
+    want, wlast = W.rwkv6_cmix(p, x[:, :39])
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    got, _ = W.rwkv6_cmix(on_card(p), dx[:, 39:], shift=glast)
+    want, _ = W.rwkv6_cmix(p, x[:, 39:], shift=wlast)
+    torch.testing.assert_close(got.cpu(), want, **tol)
 
 
 def _naive_attention(q, k, v, kind, window=0, cap=None, q_offset=0):

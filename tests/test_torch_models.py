@@ -33,9 +33,9 @@ from repro_torch.models import mlp as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 
-ATTN_ARCHS = ["granite_moe_1b_a400m", "grok_1_314b", "internvl2_1b",
-              "gemma2_2b", "granite_20b", "llama3_8b", "qwen1_5_4b",
-              "whisper_small"]
+ARCHS = ["granite_moe_1b_a400m", "grok_1_314b", "recurrentgemma_2b",
+         "internvl2_1b", "rwkv6_7b", "gemma2_2b", "granite_20b",
+         "llama3_8b", "qwen1_5_4b", "whisper_small"]
 CPU = torch.device("cpu")
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)
 MOE_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -409,10 +409,10 @@ def test_moe_groups_must_divide_the_tokens():
 
 # -------------------------------------------------------------- forward
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_loss_match_jax(arch):
-    """The eight attention architectures at f32 smoke width from JAX's
-    params: MoE expert choices exact first, then logits and the loss."""
+    """The ten architectures at f32 smoke width from JAX's params: MoE
+    expert choices exact first, then logits and the loss."""
     case = jax_case(arch)
     cfg = port_cfg(arch)
     p = params_from_numpy(case["flat"], cfg, device="cpu")
@@ -473,6 +473,29 @@ def test_params_cross_both_ways():
         params_from_numpy(bad, get_smoke_config("llama3_8b"), device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b"])
+def test_recurrent_params_cross_both_ways(arch):
+    """recurrentgemma's per-layer list (5 smoke layers, period 3) and
+    rwkv6's stacked slot cross by path name and back unchanged, in JAX's
+    leaf order; the recurrent leaves are where JAX puts them."""
+    case = jax_case(arch)
+    cfg = port_cfg(arch)
+    p = params_from_numpy(case["flat"], cfg, device="cpu")
+    back = params_to_numpy(p)
+    assert list(back) == list(case["flat"])
+    for name, arr in case["flat"].items():
+        np.testing.assert_array_equal(back[name], arr)
+    if arch == "recurrentgemma_2b":
+        assert isinstance(p["layers"], list) and len(p["layers"]) == 5
+        assert p["layers"][0]["mixer"]["lam"].shape == (cfg.lru_width,)
+        assert "wq" in p["layers"][2]["mixer"]
+    else:
+        assert len(p["layers"]) == 1
+        assert p["layers"][0]["mixer"]["tm_w2"].shape == (
+            2, 5, 32, cfg.d_model)
+        assert p["layers"][0]["mlp"]["maa_k"].dtype == torch.float32
+
+
 def test_language_model_module_names_and_forward():
     case = jax_case("whisper_small")
     cfg = port_cfg("whisper_small")
@@ -510,7 +533,7 @@ def test_init_draws_jax_distributions():
 
 # ----------------------------------------------------- causality, smoke
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_causality(arch):
     """Changing the last token never changes earlier logits."""
     cfg = port_cfg(arch)
@@ -546,7 +569,7 @@ def test_vocab_padding_never_predicted():
     assert float(none) == 0.0 and float(nm["tokens"]) == 0.0
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_shapes_and_finite_bf16(arch):
     """``tests/test_arch_smoke.py``'s forward at the configs' bf16."""
     cfg = get_smoke_config(arch)
@@ -558,15 +581,6 @@ def test_forward_shapes_and_finite_bf16(arch):
     assert logits.shape == (2, 16, cfg.padded_vocab)
     assert logits.dtype == torch.float32
     assert torch.isfinite(logits).all()
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b"])
-def test_recurrent_archs_raise_naming_9c(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="9c"):
-        T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="9c"):
-        T.block_apply({}, cfg, 0, torch.zeros(1, 4, cfg.d_model))
 
 
 def test_fused_prefill_waits_for_9d():

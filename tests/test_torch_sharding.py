@@ -112,7 +112,8 @@ def _jax_specs(arch, mesh):
 
 
 @pytest.mark.parametrize("arch", ["llama3_8b", "granite_moe_1b_a400m",
-                                  "whisper_small", "gemma2_2b"])
+                                  "whisper_small", "gemma2_2b",
+                                  "recurrentgemma_2b", "rwkv6_7b"])
 def test_param_shardings_equal_jax_leaf_by_leaf(arch):
     from repro_torch.common.tree import tree_flatten_with_paths
 
