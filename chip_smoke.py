@@ -230,7 +230,8 @@
    channel-mix) after the block's state on 511 tokens against the block
    on 512, within 2e-3. (2) The ten architectures at full width and bf16,
    B = 1, S = 4096 (gemma2 8192; internvl2 256 patches + 3840 tokens;
-   whisper 448 tokens over 1500 frames; grok-1 2 of 64 layers): logits
+   whisper 448 tokens over 1500 frames; grok-1 2 of 64 layers, rwkv6-7b
+   8 of 32): logits
    shape and finite, loss finite, causality (printed where the bits
    differ), forward ms (median of 3), tokens/s, peak memory, the FLOPs
    the code computes and their share of the 989 TFLOP/s bf16 peak. (3)
@@ -241,12 +242,43 @@
    forward's), and each recurrent scan's launches. (4) The RG-LRU scan
    over ``[1, 4096, 2560]`` and the WKV loop over ``[1, 4096, 64, 64]``
    alone at f32, ms (median of 5, CUDA events) against their bounds.
+15. Training and decoding the language models (ROADMAP Queue 1 item 9d):
+   (1) llama3-8b, gemma2-2b, granite-moe-1b-a400m, rwkv6-7b (2 layers),
+   recurrentgemma-2b (3) and whisper-small (2 + 2 over 1,500 frames) at
+   full width and f32, B = 2, a prompt of 256, from one set of parameters:
+   on the card the fused prefill's logits and every cache leaf against the
+   replay oracle (``prefill_reference``), the card's against the CPU's
+   (the MoE's choices first, as in phase 14), two decode steps against
+   teacher forcing on the card, all within 2e-3 (2e-2 for the MoE; length
+   and ring positions exact); one ``make_train_step`` of llama3-8b,
+   recurrentgemma-2b and rwkv6-7b on the card against the CPU's: loss and
+   grad norm within 2e-3 relative, every gradient leaf within 2e-3 x its
+   max |g| + 1e-6. (2) The ten architectures serving at full width and
+   bf16 through ``launch/serve_lm.py``'s ``greedy_generate``, 64 greedy
+   tokens (B = 4, a prompt of 2,048; gemma2 B = 1 and 4,096; internvl2
+   256 patches + 1,792 tokens; whisper 384 tokens; grok-1 2 of 64 layers
+   at B = 1): finite logits, ids in the real vocabulary, each ring's
+   positions exact after the prefill and every step (recurrentgemma's and
+   gemma2's rings wrap); prefill ms, decode ms a token (median of 63
+   steps, CUDA events) against the floor of the weights and the cache
+   read once, tokens/s, peak memory, cache bytes, and the kernels a decode
+   step launches (profiled in a fresh process, ``--decode-profile-child``);
+   no K1-K7 launch. (3) qwen1.5-4b, granite-moe-1b-a400m and
+   recurrentgemma-2b train 12 steps at full width through
+   ``launch/train.py``'s ``main`` (8 x 256 malgen tokens, no checkpoint):
+   finite losses, K6 once a batch plus once for the marked stream, K7 once
+   a doctor run, nothing else; steps/s, tokens/s, peak memory (in a
+   fresh process with expandable segments, ``--lm-train-child DIR``:
+   qwen1.5-4b's old and new state alone take 73.6 GiB). (4) Phase
+   13's bad-host run with llama3-8b's smoke model step at bf16: host 5
+   blocklisted and absent from the last 16 steps, finite losses.
 
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
 phase 10's two fault-free runs, mapreduce and streams, ``gang_launches``
 from rank 0 of phase 11's mapreduce gang of 2, ``trainer_launches`` from
-phase 13's real-clock run), then ``{"sanitizer": ...}`` (what phase 12's
+phase 13's real-clock run, ``lm_train_launches`` from phase 15's three
+training runs), then ``{"sanitizer": ...}`` (what phase 12's
 compute-sanitizer did), then the card's name and power limit as
 nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the last
 line. Exits non-zero, printing no result, without a CUDA device or when
@@ -349,7 +381,8 @@ ADAMW_STEPS, ADAMW_TURNS, ADAMW_SEED = 3, 5, 26
 # 4096 (train_4k, models/steps.py:37), gemma2 at 8192 so that its
 # 4096-token window masks, internvl2 256 patches + 3840 tokens, whisper
 # 448 decoder tokens over 1500 frames, grok-1 at 2 of 64 layers (631 GB at
-# full depth); (3) the top device ops of llama3-8b, recurrentgemma-2b and
+# full depth), rwkv6-7b at 8 of 32 (its host-bound forward took 10-12 s
+# at full depth: cut for the script's time limit when phase 15 came); (3) the top device ops of llama3-8b, recurrentgemma-2b and
 # rwkv6-7b at 2 layers (a full-depth trace would hold about a million
 # kernel records), each profiled in a fresh process; (4) the recurrent
 # scans alone at one layer's shape
@@ -362,7 +395,7 @@ MODEL_RUNS = (("llama3_8b", None, 4096), ("gemma2_2b", None, 8192),
               ("granite_moe_1b_a400m", None, 4096),
               ("grok_1_314b", 2, 4096), ("internvl2_1b", None, 4096),
               ("whisper_small", None, 448),
-              ("recurrentgemma_2b", None, 4096), ("rwkv6_7b", None, 4096))
+              ("recurrentgemma_2b", None, 4096), ("rwkv6_7b", 8, 4096))
 MODEL_PROFILES = (("llama3_8b", None), ("recurrentgemma_2b", None),
                   ("rwkv6_7b", 2))
 MODEL_TURNS = 3
@@ -373,6 +406,33 @@ RECURRENT_ARCHS = ("recurrentgemma_2b", "rwkv6_7b")
 PEAK_F32 = 67e12                   # f32 FLOP/s off the tensor cores
 MODEL_TOP_OPS = 12
 PEAK_BF16 = 989e12                 # dense bf16 FLOP/s, H100 SXM data sheet
+# phase 15: train and decode (ROADMAP Queue 1 item 9d). (1) card against
+# CPU at f32, full width, B = 2, a prompt of 256 (2 layers, recurrentgemma
+# 3, whisper 2 + 2 over its 1,500 frames); (2) the ten architectures
+# serving at full width and bf16 (B = 4 and a prompt of 2,048, so that
+# recurrentgemma's 2,048-slot ring wraps; gemma2 B = 1 and 4,096 so that
+# its 4,096-slot ring wraps, its prefill's f32 logits over 256,000 ids
+# being the bound; internvl2 256 patches + 1,792 tokens; whisper 384
+# tokens; grok-1 2 of 64 layers at B = 1); (3) three models training
+# through launch/train.py at its malgen defaults (qwen1.5-4b with f32
+# moments: 7.36 GiB of bf16 parameters, 29.4 of moments); (4) the bad-host
+# run of phase 13 with a model's train step
+LM_SEED = 29
+LM_F32 = (("llama3_8b", 2), ("gemma2_2b", 2), ("granite_moe_1b_a400m", 2),
+          ("recurrentgemma_2b", 3), ("rwkv6_7b", 2), ("whisper_small", 2))
+LM_F32_TRAIN = ("llama3_8b", "recurrentgemma_2b", "rwkv6_7b")
+LM_F32_BATCH, LM_F32_PROMPT = 2, 256
+SERVE_RUNS = (("llama3_8b", None, 4, 2048), ("gemma2_2b", None, 1, 4096),
+              ("qwen1_5_4b", None, 4, 2048), ("granite_20b", None, 4, 2048),
+              ("granite_moe_1b_a400m", None, 4, 2048),
+              ("grok_1_314b", 2, 1, 2048), ("internvl2_1b", None, 4, 1792),
+              ("whisper_small", None, 4, 384),
+              ("recurrentgemma_2b", None, 4, 2048),
+              ("rwkv6_7b", None, 4, 2048))
+SERVE_TOKENS = 64
+LM_TRAIN_RUNS = ("qwen1_5_4b", "granite_moe_1b_a400m", "recurrentgemma_2b")
+LM_TRAIN_ARGS = ("--steps", "12", "--batch", "8", "--seq-len", "256",
+                 "--data", "malgen", "--ckpt-every", "100")
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
 GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
 FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
@@ -4012,23 +4072,23 @@ def model_cfg(arch: str, layers=None, f32: bool = False):
     return cfg
 
 
-def model_batch(cfg, seq: int, device, seed: int) -> dict:
-    """B = 1: ``seq`` positions (for a VLM the patch prefix and the rest
-    tokens), labels the tokens; frames for an encoder-decoder, at the
-    compute dtype, 0.1 x a normal draw."""
+def model_batch(cfg, seq: int, device, seed: int, b: int = 1) -> dict:
+    """B = ``b`` (1 unless asked): ``seq`` positions (for a VLM the patch
+    prefix and the rest tokens), labels the tokens; frames for an
+    encoder-decoder, at the compute dtype, 0.1 x a normal draw."""
     g = torch.Generator(device=device).manual_seed(seed)
     dt = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
     n_tok = seq - (cfg.num_patches if cfg.family == "vlm" else 0)
-    toks = torch.randint(0, cfg.vocab_size, (1, n_tok), generator=g,
+    toks = torch.randint(0, cfg.vocab_size, (b, n_tok), generator=g,
                          device=device, dtype=torch.int32)
     batch = {"tokens": toks, "labels": toks}
     if cfg.family == "vlm":
         batch["patches"] = (0.1 * torch.randn(
-            (1, cfg.num_patches, cfg.d_model), generator=g,
+            (b, cfg.num_patches, cfg.d_model), generator=g,
             device=device)).to(dt)
     if cfg.is_encoder_decoder:
         batch["frames"] = (0.1 * torch.randn(
-            (1, cfg.encoder_seq, cfg.d_model), generator=g,
+            (b, cfg.encoder_seq, cfg.d_model), generator=g,
             device=device)).to(dt)
     return batch
 
@@ -4563,7 +4623,7 @@ def model_phase(device, card: str) -> dict:
                          f"{row['tokens_per_s']:.1f} tokens/s, "
                          f"{row['peak_share']:.4f} of the bf16 peak, "
                          f"{profs[arch]['full_launches']} kernel launches a "
-                         f"forward; one layer's {sc['name']} {sc['ms']:.3f} "
+                         f"full-depth forward; one layer's {sc['name']} {sc['ms']:.3f} "
                          f"ms in {profs[arch]['scan']['launches']} launches "
                          f"(bound {sc['bound_ms']:.4f} ms)")
     log("model", f"{card}: {tf32_state()}; phase 14 took "
@@ -4571,11 +4631,597 @@ def model_phase(device, card: str) -> dict:
     return dict(f32=f32, full=full, scans=scans, profiles=profs)
 
 
+# ------------------------------------------------------------- phase 15
+def lm_f32_cfg(arch: str, layers: int):
+    """Full width at f32, cut to ``layers`` (whisper's encoder too); a MoE
+    at capacity factor 8.0, JAX's decode-test setting
+    (``tests/test_models.py:21-25``), so that no token is dropped and a
+    forward over other groups routes each token as the decode does."""
+    import dataclasses
+
+    cfg = model_cfg(arch, layers, f32=True)
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    return cfg
+
+
+def same_tree(name: str, got, want, tol: float) -> float:
+    """Leaf names equal, integer leaves exact, float leaves within rtol =
+    atol = ``tol`` of ``want`` (on the CPU); returns the largest float
+    difference."""
+    from repro_torch.common import tree as tr
+
+    got, want = tr.tree_flatten_with_paths(got), tr.tree_flatten_with_paths(
+        want)
+    check([n for n, _ in got] == [n for n, _ in want],
+          f"{name}: the cache trees differ")
+    err = 0.0
+    for (leaf, a), (_, b) in zip(got, want):
+        a = a.cpu()
+        if b.dtype == torch.int32:
+            check(torch.equal(a, b.cpu()), f"{name}: {leaf} differs")
+        else:
+            err = max(err, close_f32(f"{name}: {leaf}", a, b.cpu(), tol))
+    return err
+
+
+@contextlib.contextmanager
+def captured_grads():
+    """The gradient list of every ``loss_and_grads`` call inside the train
+    step, kept (the step empties its own list as AdamW consumes it)."""
+    from repro_torch.models import steps as S
+
+    seen, real = [], S.loss_and_grads
+
+    def loss_and_grads(params, cfg, batch):
+        loss, metrics, grads = real(params, cfg, batch)
+        seen.append(list(grads))
+        return loss, metrics, grads
+
+    S.loss_and_grads = loss_and_grads
+    try:
+        yield seen
+    finally:
+        S.loss_and_grads = real
+
+
+def lm_train_step_vs_cpu(arch: str, cfg, p, cpu_p, batch: dict) -> dict:
+    """One ``make_train_step`` on the card against the CPU's loss and
+    gradients from the same parameters (``loss_and_grads``, the step's
+    gradient; the CPU's AdamW update is left out, its grad norm taken as
+    the step takes it): loss and grad norm within 2e-3 relative, each
+    gradient leaf within 2e-3 x its max |g| (the CPU's) + 1e-6."""
+    from repro_torch.common import tree as tr
+    from repro_torch.models import steps as S
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    opt = AdamWConfig()
+    step = S.make_train_step(cfg, opt)
+    with captured_grads() as card_g:
+        _, m = step(S.TrainState(p, adamw_init(p, opt)), batch)
+    loss, _, grads = S.loss_and_grads(cpu_p, cfg,
+                                      {k: v.cpu() for k, v in batch.items()})
+    cpu_g = [grads]
+    cm = {"loss": loss, "grad_norm": tr.tree_global_norm(grads)}
+    out = {}
+    for key in ("loss", "grad_norm"):
+        a, b = float(m[key]), float(cm[key])
+        out[key] = abs(a - b) / abs(b)
+        check(out[key] <= 2e-3, f"{arch} train step: {key} {a!r} on the card "
+                                f"against {b!r} on the CPU")
+    worst, names = 0.0, [n for n, _ in tr.tree_flatten_with_paths(p)]
+    for name, a, b in zip(names, card_g[0], cpu_g[0]):
+        allow = 2e-3 * float(b.abs().max()) + 1e-6
+        share = float((a.cpu() - b).abs().max()) / allow
+        worst = max(worst, share)
+        check(share <= 1.0, f"{arch} train step: gradient {name} off by "
+                            f"{share:.3f} of its allowance")
+    out["grad_share"] = worst
+    return out
+
+
+def lm_card_vs_cpu(device, card: str) -> dict:
+    """(1) Full width, f32, B = 2, a prompt of LM_F32_PROMPT tokens: on the
+    card the fused prefill against the replay oracle, the card's against
+    the CPU's (the MoE's choices first, ``same_routes``), two decode steps
+    against teacher forcing on the card; one train step against the
+    CPU's on LM_F32_TRAIN."""
+    import dataclasses
+
+    from repro_torch.common import tree as tr
+    from repro_torch.models import decoding as D
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch, layers in LM_F32:
+        t0 = time.perf_counter()
+        cfg = lm_f32_cfg(arch, layers)
+        moe = cfg.family == "moe"
+        tol = 2e-2 if moe else 2e-3
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        p, _ = T.init_params(cfg, generator=gen, device=device)
+        cpu_p = tr.tree_map(lambda x: x.to(cpu), p)
+        n = LM_F32_PROMPT
+        batch = model_batch(cfg, n + 2, device, LM_SEED, b=LM_F32_BATCH)
+        prompt = {k: v[:, :n] if k in ("tokens", "labels") else v
+                  for k, v in batch.items()}
+        max_len = n + 16
+        row = {}
+        with torch.inference_mode():
+            with recorded_routes() as card_routes:
+                last, cache, enc_out = D.prefill(p, cfg, prompt, max_len)
+            ref_last, ref_cache, _ = D.prefill_reference(p, cfg, prompt,
+                                                         max_len)
+            row["oracle"] = max(
+                close_f32(f"{arch} fused prefill against the replay oracle",
+                          last, ref_last.cpu(), tol),
+                same_tree(f"{arch} fused against replayed cache", cache,
+                          ref_cache, tol))
+            del ref_cache
+            with recorded_routes(forced=card_routes) as cpu_routes:
+                c_last, c_cache, _ = D.prefill(
+                    cpu_p, cfg, {k: v.cpu() for k, v in prompt.items()},
+                    max_len)
+            if moe:
+                row["routes"] = same_routes(arch, card_routes, cpu_routes,
+                                            cfg.num_experts_per_tok)
+            row["cpu"] = max(
+                close_f32(f"{arch} prefill, card against CPU", last, c_last,
+                          tol),
+                same_tree(f"{arch} prefill cache, card against CPU", cache,
+                          c_cache, tol))
+            del c_cache, card_routes, cpu_routes
+            # teacher forcing: a MoE's forward in one group (no token is
+            # dropped at capacity factor 8.0, so the groups do not matter)
+            tf_cfg = (dataclasses.replace(cfg, moe_group_size=LM_F32_BATCH
+                                          * (n + 2)) if moe else cfg)
+            full = T.forward(p, tf_cfg, batch)
+            errs = []
+            for i in (n, n + 1):
+                lg, cache = D.decode_step(p, cfg, batch["tokens"][:, i:i + 1],
+                                          cache, enc_out=enc_out)
+                errs.append(close_f32(
+                    f"{arch} decode step at {i} against teacher forcing",
+                    lg[:, 0], full[:, i].cpu(), tol))
+            row["decode"] = max(errs)
+            del full, cache
+        if arch in LM_F32_TRAIN:
+            train = {"tokens": batch["tokens"][:, :n],
+                     "labels": batch["tokens"][:, 1:n + 1]}
+            row["train"] = lm_train_step_vs_cpu(arch, cfg, p, cpu_p, train)
+        del p, cpu_p
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+        out[arch] = row
+        routed = row.get("routes")
+        log("lm", f"{card}: {arch} f32, {cfg.num_layers} layers"
+                  + (f" + {cfg.encoder_layers} over {cfg.encoder_seq} frames"
+                     if cfg.is_encoder_decoder else "")
+                  + f", B={LM_F32_BATCH}, prompt {n}: fused prefill against "
+                    f"the replay oracle max |diff| {row['oracle']:.3e}, card "
+                    f"against CPU {row['cpu']:.3e}, two decode steps against "
+                    f"teacher forcing {row['decode']:.3e} (bar {tol})"
+                  + (f"; {routed['calls']} MoE calls routed as on the card, "
+                     f"{routed['flips']} token(s) otherwise on the CPU's "
+                     f"inputs within 2 x the drift {routed['prob_drift']:.3e}"
+                     if routed else "")
+                  + (f"; train step: loss {row['train']['loss']:.3e} and "
+                     f"grad norm {row['train']['grad_norm']:.3e} relative, "
+                     f"worst gradient leaf {row['train']['grad_share']:.3f} of"
+                     f" its allowance (bar 2e-3 x max |g| + 1e-6)"
+                     if "train" in row else "")
+                  + f"; {row['seconds']:.1f} s")
+    return out
+
+
+def ring_want(slots: torch.Tensor, length: int, window: int) -> torch.Tensor:
+    """The ring's ``pos`` after ``length`` tokens, on the device: slot s
+    holds the latest position p < length with p % window == s, -1 where
+    none is."""
+    latest = slots + torch.div(length - 1 - slots, window,
+                               rounding_mode="floor") * window
+    return torch.where(slots <= length - 1, latest, -1).to(torch.int32)
+
+
+def lm_serve_one(device, card: str, arch: str, layers, b: int,
+                 prompt: int) -> dict:
+    """(2) One architecture serving at full width and bf16 through
+    ``serve_lm.greedy_generate``: SERVE_TOKENS greedy tokens under
+    inference mode, each step's time from CUDA events; checked on the
+    device as it runs (finite logits; every ring's ``pos`` and ``length``
+    after the prefill and every step) and read once at the end."""
+    from repro_torch.common import tree as tr
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = model_cfg(arch, layers)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    p, _ = T.init_params(cfg, generator=gen, device=device)
+    batch = serve_lm.prompt_batch(cfg, b, prompt, device, seed=LM_SEED)
+    patches = cfg.num_patches if cfg.family == "vlm" else 0
+    max_len = prompt + SERVE_TOKENS + 8 + patches
+    oks, rings = [], {}
+
+    def on_step(i, logits, cache):
+        oks.append(torch.isfinite(logits).all())
+        length = prompt + patches + i
+        for li, lc in enumerate(cache):
+            if "kind_local" not in lc:
+                continue
+            ring = lc["kind_local"]
+            w = ring.pos.shape[-1]
+            slots = torch.arange(w, device=device)
+            oks.append((ring.pos == ring_want(slots, length, w)).all())
+            oks.append((ring.length == length).all())
+            rings[li] = w
+
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.inference_mode():
+        out = serve_lm.greedy_generate(p, cfg, batch, SERVE_TOKENS, max_len,
+                                       on_step=on_step)
+    sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    check(all(bool(x) for x in oks), f"{arch} serving: a logit is not "
+          f"finite or a ring's positions are off")
+    ids = out.ids
+    check(tuple(ids.shape) == (b, SERVE_TOKENS)
+          and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          f"{arch} serving: ids {ids.dtype}{tuple(ids.shape)} outside "
+          f"[0, {cfg.vocab_size})")
+    if arch in ("gemma2_2b", "recurrentgemma_2b"):
+        wnd = min(cfg.local_window, max_len)
+        check(rings and prompt + SERVE_TOKENS - 1 > wnd,
+              f"{arch} serving: the ring of {wnd} did not wrap")
+    steps = out.step_ms[1:]
+    ms = statistics.median(steps)
+    param_bytes = tr.tree_bytes(p)
+    cache_bytes = tr.tree_bytes(out.cache)
+    row = dict(arch=arch, layers=cfg.num_layers, batch=b, prompt=prompt,
+               patches=patches, prefill_ms=out.step_ms[0], decode_ms=ms,
+               decode_ms_min=min(steps), decode_ms_max=max(steps),
+               tokens_per_s=b / (ms / 1e3), peak_gib=peak / 2**30,
+               param_bytes=param_bytes, cache_bytes=cache_bytes,
+               floor_ms=(param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+               rings=len(rings), seconds=time.perf_counter() - t0)
+    del p, out, batch
+    torch.cuda.empty_cache()
+    log("lm", f"{card}: serve {arch} bf16 {cfg.num_layers} layers"
+              f"{' (reduced)' if layers else ''}, B={b}, prompt "
+              + (f"{patches} patches + " if patches else "")
+              + f"{prompt} tokens"
+              + (f" over {cfg.encoder_seq} frames"
+                 if cfg.is_encoder_decoder else "")
+              + f": prefill {row['prefill_ms']:.3f} ms; decode "
+                f"{ms:.3f} ms a token (median of {len(steps)} steps, CUDA "
+                f"events; {min(steps):.3f}-{max(steps):.3f}) = "
+                f"{row['tokens_per_s']:.1f} tokens/s batch-wide, floor "
+                f"{row['floor_ms']:.3f} ms (weights "
+                f"{param_bytes / 1e9:.3f} GB + cache "
+                f"{cache_bytes / 1e9:.3f} GB at 3.35 TB/s); peak "
+                f"{row['peak_gib']:.3f} GiB; "
+                + (f"{len(rings)} ring leaves wrapped, positions exact; "
+                   if rings else "")
+                + f"{row['seconds']:.1f} s")
+    return row
+
+
+def decode_profile_child() -> int:
+    """(2) In a fresh process, for each SERVE_RUNS architecture at full
+    width and bf16 (a prompt of 32 tokens: a step's launches do not depend
+    on its length), the kernels one decode step launches: two profiled
+    sessions, of one step and of two, launches a step = their difference
+    (a session's first records, if the profiler drops them, cancel).
+    Prints one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import decoding as D
+    from repro_torch.models import transformer as T
+
+    device = torch.device("cuda")
+    out, t_first = {}, None
+    for arch, layers, b, _ in SERVE_RUNS:
+        cfg = model_cfg(arch, layers)
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        p, _ = T.init_params(cfg, generator=gen, device=device)
+        batch = serve_lm.prompt_batch(cfg, b, 32, device)
+        with torch.inference_mode():
+            logits, cache, enc_out = D.prefill(p, cfg, batch, 32 + 16 + (
+                cfg.num_patches if cfg.family == "vlm" else 0))
+            tok = serve_lm.greedy(logits, cfg)
+
+            def steps(k):
+                nonlocal cache
+                for _ in range(k):
+                    _, cache = D.decode_step(p, cfg, tok, cache,
+                                             enc_out=enc_out)
+
+            steps(2)
+            sync(device)
+            t_first = t_first or time.perf_counter()
+            one = profiled(lambda: steps(1), device, ops=False)["launches"]
+            two = profiled(lambda: steps(2), device, ops=False)["launches"]
+        out[arch] = dict(one=one, two=two, per_step=two - one,
+                         since_first_s=time.perf_counter() - t_first)
+        del p, cache, logits, enc_out
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def lm_decode_launches(card: str) -> dict:
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--decode-profile-child"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    check(out.returncode == 0, f"decode profile child failed: "
+                               f"{out.stderr[-2000:]}")
+    prof = json.loads(out.stdout.strip().splitlines()[-1])
+    for arch, r in prof.items():
+        check(r["per_step"] > 0, f"{arch}: no decode launches recorded")
+    log("lm", f"{card}: kernel launches a decode step, profiled in a fresh "
+              f"process (sessions of one step and of two; "
+              f"{time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{a} {r['per_step']} ({r['one']} / {r['two']}, "
+                          f"{r['since_first_s']:.0f} s)"
+                          for a, r in prof.items()))
+    return prof
+
+
+def lm_training(device, root: pathlib.Path, card: str) -> dict:
+    """(3) LM_TRAIN_RUNS through ``launch/train.py``'s ``main`` at full
+    width: finite losses, no checkpoint written, K6 once a batch fetched
+    plus once for the marked stream, K7 once a doctor run, nothing else.
+    Steps/s and tokens/s from the trainer's step durations (host clock,
+    each to ``float(loss)``), the first step apart."""
+    import math
+
+    from repro_torch.configs import ALIASES
+    from repro_torch.data import pipeline as pipe_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import steps as S
+
+    made, errors = [], []
+    real_batch_at = pipe_mod.TokenPipeline.batch_at
+    real_make = S.make_train_step
+
+    def batch_at(self, step):
+        made.append(step)
+        return real_batch_at(self, step)
+
+    def make_train_step(*args, **kw):
+        # the trainer retries a step that raises and hides why: keep it
+        step = real_make(*args, **kw)
+
+        def train_step(state, batch):
+            try:
+                return step(state, batch)
+            except Exception as e:  # noqa: BLE001 - reported, re-raised
+                errors.append(f"{type(e).__name__}: {str(e)[:400]}")
+                raise
+
+        return train_step
+
+    rows, total = [], {}
+    pipe_mod.TokenPipeline.batch_at = batch_at
+    S.make_train_step = make_train_step
+    try:
+        for arch in LM_TRAIN_RUNS:
+            made.clear()
+            ckpt = root / arch
+            alias = {v: k for k, v in ALIASES.items()}[arch]
+            sync(device)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            errors.clear()
+            with trainer_patched(device, fake_clock=False) as doctor_ms:
+                t0 = time.perf_counter()
+                try:
+                    report = train_launcher.main(["--arch", alias,
+                                                  *LM_TRAIN_ARGS,
+                                                  "--ckpt-dir", str(ckpt)])
+                except RuntimeError as e:
+                    check(False, f"{arch} training failed: {e}; the steps "
+                                 f"raised {errors[:2]}")
+                wall = time.perf_counter() - t0
+            check(not errors, f"{arch} training: steps raised {errors[:2]}")
+            sync(device)
+            peak = torch.cuda.max_memory_allocated(device)
+            launches = launch_counts()
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            hist = report["history"]
+            losses = [h["loss"] for h in hist]
+            check(report["final_step"] == 12 and len(hist) == 12
+                  and all(math.isfinite(x) for x in losses),
+                  f"{arch} training: {report['final_step']} steps, losses "
+                  f"{losses}")
+            check(not list(ckpt.glob("step_*")),
+                  f"{arch} training wrote a checkpoint")
+            check(launches["powerlaw_sample"] == len(made) + 1,
+                  f"{arch} training: {launches['powerlaw_sample']} K6 "
+                  f"launches for {len(made)} batches and the marked stream")
+            check(launches["windowed_ratio"] == len(doctor_ms),
+                  f"{arch} training: {launches['windowed_ratio']} K7 "
+                  f"launches for {len(doctor_ms)} doctor runs")
+            others = {k: v for k, v in launches.items()
+                      if k not in ("windowed_ratio", "powerlaw_sample") and v}
+            check(not others, f"{arch} training: other kernels {others}")
+            durs = [h["dur"] for h in hist]
+            tokens = 8 * 256
+            row = dict(arch=arch, wall_s=wall, first_step_s=durs[0],
+                       step_s_p50=statistics.median(durs[1:]),
+                       steps_per_s=(len(durs) - 1) / sum(durs[1:]),
+                       tokens_per_s=tokens * (len(durs) - 1) / sum(durs[1:]),
+                       peak_gib=peak / 2**30, first_loss=losses[0],
+                       last_loss=losses[-1], batches=len(made),
+                       doctor_runs=len(doctor_ms),
+                       launches={k: v for k, v in launches.items() if v})
+            rows.append(row)
+            log("lm", f"{card}: train {arch} full width through "
+                      f"launch/train.py, 12 steps of 8 x 256 malgen tokens: "
+                      f"{row['steps_per_s']:.3f} steps/s = "
+                      f"{row['tokens_per_s']:.1f} tokens/s over steps 2-12 "
+                      f"(step p50 {row['step_s_p50']:.3f} s, the first "
+                      f"{row['first_step_s']:.3f} s; host clock to "
+                      f"float(loss)), main() {wall:.1f} s; peak "
+                      f"{row['peak_gib']:.3f} GiB; loss {losses[0]:.4f} -> "
+                      f"{losses[-1]:.4f}; launches K6 "
+                      f"{launches['powerlaw_sample']} ({len(made)} batches "
+                      f"+ the marked stream), K7 {launches['windowed_ratio']}"
+                      f" ({len(doctor_ms)} doctor runs), no other")
+            del report, hist
+    finally:
+        pipe_mod.TokenPipeline.batch_at = real_batch_at
+        S.make_train_step = real_make
+    return dict(rows=rows, launches=total)
+
+
+def lm_train_child(root: str) -> int:
+    """(3) in a fresh process (``--lm-train-child DIR``), started with
+    PyTorch's expandable segments: qwen1.5-4b's functional step holds the
+    old and the new parameters and f32 moments at once (73.6 GiB of the
+    card's 79.2), which leaves no room for a fragmented cache. Prints
+    one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    device = torch.device("cuda")
+    out = lm_training(device, pathlib.Path(root), card_line())
+    print(json.dumps(out))
+    return 0
+
+
+def lm_training_in_child(root: pathlib.Path) -> dict:
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--lm-train-child",
+         str(root)], capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=env)
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    check(out.returncode == 0, f"the training child failed: "
+                               f"{out.stderr[-3000:]}")
+    log("lm", f"the training child took {time.perf_counter() - t0:.1f} s")
+    return json.loads(lines[-1])
+
+
+def lm_bad_host(device, root: pathlib.Path, card: str) -> dict:
+    """(4) The trainer of phase 13 with llama3-8b's smoke model step at
+    its bf16 (``make_train_step``) on the JAX launcher's malgen batches:
+    host 5 fails every step it serves past step 8; it ends blocklisted
+    and absent from the last 16 steps, every loss finite."""
+    import math
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import steps as S
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = get_smoke_config("llama3_8b")
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    pipe = TokenPipeline(DataConfig(**TRAIN_DATA), device=device)
+    state, _ = S.make_train_state(
+        cfg, AdamWConfig(), device=device,
+        generator=torch.Generator(device=device).manual_seed(LM_SEED))
+    made = []
+
+    def batch_fn(step):
+        made.append(step)
+        return pipe.batch_at(step)
+
+    tr = Trainer(TrainConfig(ckpt_dir=str(root / "bad_host"), **TRAIN_RUN),
+                 S.make_train_step(cfg, AdamWConfig(),
+                                   total_steps=TRAIN_RUN["total_steps"]),
+                 state, batch_fn, fault_hook=bad_host_hook, device=device)
+    with trainer_patched(device, fake_clock=False) as doctor_ms:
+        t0 = time.perf_counter()
+        report = tr.run()
+        wall = time.perf_counter() - t0
+    sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = launch_counts()
+    hist = report["history"]
+    losses = [h["loss"] for h in hist]
+    check(report["final_step"] == TRAIN_RUN["total_steps"]
+          and all(math.isfinite(x) for x in losses),
+          f"bad-host model run: final step {report['final_step']}")
+    check(TRAIN_BAD_HOST in report["blocklist"]
+          and TRAIN_BAD_HOST not in {h["host"] for h in hist[-16:]},
+          f"bad-host model run: blocklist {report['blocklist']}, last hosts "
+          f"{[h['host'] for h in hist[-16:]]}")
+    check(launches["powerlaw_sample"] == len(made) + 1
+          and launches["windowed_ratio"] == len(doctor_ms),
+          f"bad-host model run: launches {dict(launches)} for {len(made)} "
+          f"batches and {len(doctor_ms)} doctor runs")
+    tokens = len(hist) * TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    out = dict(steps=len(hist), wall_s=wall, tokens_per_s=tokens / wall,
+               peak_gib=peak / 2**30, blocklist=report["blocklist"],
+               retries=report["retries"], restarts=report["restarts"],
+               first_loss=losses[0], last_loss=losses[-1])
+    log("lm", f"{card}: bad-host run with llama3-8b's smoke model step "
+              f"(bf16): {len(hist)} steps in {wall:.3f} s = "
+              f"{out['tokens_per_s']:.1f} tokens/s (host clock, retries, "
+              f"restores and doctor runs included), {out['retries']} "
+              f"retries, {out['restarts']} restarts, blocklist "
+              f"{out['blocklist']}; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; peak {out['peak_gib']:.3f} GiB; K6 "
+              f"{launches['powerlaw_sample']}, K7 {launches['windowed_ratio']}")
+    return out
+
+
+def lm_phase(device, card: str) -> dict:
+    """Phase 15: train and decode the language models on the card."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    sync(device)
+    torch.cuda.empty_cache()
+    f32 = lm_card_vs_cpu(device, card)
+    reset_launch_counts()
+    serve = [lm_serve_one(device, card, *run) for run in SERVE_RUNS]
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"serving launched {launched}")
+    launches = lm_decode_launches(card)
+    for row in serve:
+        row["launches_per_step"] = launches[row["arch"]]["per_step"]
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    sync(device)
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    log("lm", f"{card}: this process holds "
+              f"{torch.cuda.memory_allocated(device) / 2**30:.3f} GiB "
+              f"allocated, {torch.cuda.memory_reserved(device) / 2**30:.3f} "
+              f"reserved, as the training child starts")
+    try:
+        train = lm_training_in_child(root)
+        bad = lm_bad_host(device, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("lm", f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return dict(f32=f32, serve=serve, train=train, bad_host=bad)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--sanitizer-child"]:
         return sanitizer_child()
     if sys.argv[1:2] == ["--model-profile-child"]:
         return model_profile_child(*sys.argv[2:])
+    if sys.argv[1:] == ["--decode-profile-child"]:
+        return decode_profile_child()
+    if sys.argv[1:2] == ["--lm-train-child"]:
+        return lm_train_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -4627,6 +5273,10 @@ def main() -> int:
             row["trainer_launches"] = train["trainer"]["launches"][
                 row["name"]]
         model_phase(device, card)
+        lm = lm_phase(device, card)
+        for row in kernels:
+            row["lm_train_launches"] = lm["train"]["launches"].get(
+                row["name"], 0)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -323,8 +323,9 @@ def _engine_budget(engine: str, backend: str):
 
 
 def driver_targets(device) -> dict:
-    """``name -> DriverTarget``: every engine x backend, and the service's
-    seed-mode ingest per backend, its snapshot and a query batch."""
+    """``name -> DriverTarget``: every engine x backend, the service's
+    seed-mode ingest per backend, its snapshot and a query batch, and the
+    language model's prefill with a decode step and its train step."""
     from repro_torch.core import run
     from repro_torch.malgen.seeding import make_seed
 
@@ -357,6 +358,7 @@ def driver_targets(device) -> dict:
             targets[f"drivers:{engine}/{backend}"] = DriverTarget(
                 go, budget, reason, setup)
     targets.update(_serve_targets(device, cfg))
+    targets.update(_lm_targets(device))
     return dict(sorted(targets.items()))
 
 
@@ -413,6 +415,65 @@ def _serve_targets(device, cfg) -> dict:
         lambda out: 0, "none: the answers stay on the device until wait()",
         query_setup)
     return targets
+
+
+# The language model's serving and training steps, at gemma2's smoke
+# config (a stacked layout, a local ring and a global cache, softcaps and
+# the scaled embedding)
+LM_ARCH = "gemma2_2b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN = 2, 20, 24
+
+
+def _lm_targets(device) -> dict:
+    from repro_torch.common.nodes import resolve_device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decoding as D
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_smoke_config(LM_ARCH)
+
+    def tokens():
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                             generator=g, dtype=torch.int32)
+        return toks.to(resolve_device(device))
+
+    def serve_setup():
+        dev = resolve_device(device)
+        params, _ = T.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        return params, {"tokens": tokens()}
+
+    def serve(args):
+        params, batch = args
+        logits, cache, enc_out = D.prefill(params, cfg, batch, LM_MAX_LEN)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+        return D.decode_step(params, cfg, tok.to(torch.int32), cache,
+                             enc_out=enc_out)
+
+    def train_setup():
+        dev = resolve_device(device)
+        state, _ = S.make_train_state(
+            cfg, AdamWConfig(),
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        toks = tokens()
+        return state, {"tokens": toks, "labels": toks}
+
+    step = S.make_train_step(cfg, AdamWConfig())
+    return {
+        f"drivers:lm_prefill_decode/{LM_ARCH}": DriverTarget(
+            serve, lambda out: 0,
+            "none: the cache's positions are 0-dim tensors read on the "
+            "device, the greedy token never leaves it", serve_setup),
+        f"drivers:lm_train_step/{LM_ARCH}": DriverTarget(
+            lambda args: step(*args), lambda out: 0,
+            "none: the loss, grad norm and learning rate stay on the "
+            "device (the trainer reads the loss once, after the step)",
+            train_setup),
+    }
 
 
 # ------------------------------------------------------------ the passes

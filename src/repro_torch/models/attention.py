@@ -18,7 +18,13 @@ accumulator is f32 and the output is cast back to ``q``'s dtype.
 
 Decode attends one query against the cache directly (no chunking): either a
 full cache [B, S_max, Hkv, D] + length, or a ring buffer of ``window`` slots
-for local attention.
+for local attention. ``update_cache`` and ``update_ring_cache`` return new
+buffers, as JAX's do; ``update_cache_`` and ``update_ring_cache_`` write the
+token into the cache itself (the decode step's: a functional write would
+copy every layer's whole cache at every token).
+
+On the card the f32 scores' products have a gradient of their own
+(``_BmmF32``), so a bf16 train step differentiates through attention.
 """
 
 from __future__ import annotations
@@ -48,13 +54,38 @@ class RingKVCache(NamedTuple):
     length: torch.Tensor   # 0-dim int32 — total tokens seen
 
 
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=torch.float32)`` with a gradient (the
+    op has no autograd formula): JAX's transpose of ``dot_general(...,
+    preferred_element_type=f32)``. The f32 cotangent times the other
+    operand widened to f32, in f32, cast to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(dc, b.to(torch.float32).mT).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.to(torch.float32).mT, dc).to(b.dtype)
+        return da, db
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of two 3-dim tensors of one dtype with an f32 result, the
-    products accumulated in f32 (JAX's ``preferred_element_type``)."""
+    products accumulated in f32 (JAX's ``preferred_element_type``). On the
+    CPU, which has no such kernel, the operands are widened (exact), and
+    autograd differentiates that; its gradients are what the card's are
+    held against."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
@@ -176,12 +207,45 @@ def decode_attention_ring(q: torch.Tensor, cache: RingKVCache,
     return _decode(q, cache.k, cache.v, valid, attn_softcap)
 
 
+def _at(start: torch.Tensor, size: int) -> torch.Tensor:
+    """JAX's ``dynamic_update_slice_in_dim`` start of a size-1 update:
+    ``start`` (a 0-dim tensor, never read on the host) clamped into
+    ``[0, size)``, as an index vector."""
+    return start.clamp(0, size - 1).reshape(1).to(torch.int64)
+
+
 def _write_at(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
               dim: int) -> torch.Tensor:
-    """JAX's ``dynamic_update_slice_in_dim`` of a size-1 update: ``start``
-    (a 0-dim tensor, never read on the host) clamped into the buffer."""
-    idx = start.clamp(0, buf.shape[dim] - 1).reshape(1).to(torch.int64)
-    return buf.index_copy(dim, idx, new)
+    return buf.index_copy(dim, _at(start, buf.shape[dim]), new)
+
+
+def _write_at_(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+               dim: int) -> None:
+    """:func:`_write_at` into ``buf`` itself (a view writes through)."""
+    buf.index_copy_(dim, _at(start, buf.shape[dim]), new)
+
+
+def update_cache_(cache: KVCache, k_new: torch.Tensor,
+                  v_new: torch.Tensor) -> KVCache:
+    """:func:`update_cache` in place: the token's K/V are written into the
+    cache's buffers and ``length`` is advanced, all of them views that may
+    lie in a stacked ``[R, ...]`` leaf. Returns ``cache``."""
+    _write_at_(cache.k, k_new, cache.length, 1)
+    _write_at_(cache.v, v_new, cache.length, 1)
+    cache.length.add_(1)
+    return cache
+
+
+def update_ring_cache_(cache: RingKVCache, k_new: torch.Tensor,
+                       v_new: torch.Tensor) -> RingKVCache:
+    """:func:`update_ring_cache` in place. Returns ``cache``."""
+    slot = cache.length % cache.k.shape[1]
+    _write_at_(cache.k, k_new, slot, 1)
+    _write_at_(cache.v, v_new, slot, 1)
+    _write_at_(cache.pos, cache.length.reshape(1).to(cache.pos.dtype), slot,
+               0)
+    cache.length.add_(1)
+    return cache
 
 
 def update_cache(cache: KVCache, k_new: torch.Tensor,
@@ -233,5 +297,5 @@ def prefill_into_cache(cache: KVCache, k: torch.Tensor,
     kc, vc = cache.k.clone(), cache.v.clone()
     kc[:, :k.shape[1]] = k
     vc[:, :v.shape[1]] = v
-    return KVCache(k=kc, v=vc, length=torch.tensor(
-        length, dtype=torch.int32, device=cache.k.device))
+    return KVCache(k=kc, v=vc, length=torch.full(
+        (), length, dtype=torch.int32, device=cache.k.device))

@@ -11,14 +11,17 @@ Layer layout: when the (mixer, mlp) pattern period divides num_layers, the
 repeats are stacked along a leading "layers" dim (``layers/<slot>/...``
 with a leading ``[n_rep]``) and run slot by slot for each repeat, as JAX's
 ``lax.scan`` does; otherwise ``layers`` is a per-layer list. JAX's
-``jax.checkpoint`` (rematerialisation) changes no forward value and has no
-counterpart here.
+``jax.checkpoint`` (rematerialisation) is ``_remat``: while autograd
+records (a train step), each decoder block and each encoder layer keeps
+only its inputs and is recomputed in the backward
+(``torch.utils.checkpoint``), which changes no value; a forward without
+gradients runs the blocks plainly.
 
 The mixers are attention (global, local, bidirectional), RG-LRU
 (``rglru.py``) and RWKV-6 time-mix (``rwkv6.py``); the MLPs the gated and
-plain ones, the MoE and RWKV-6's channel-mix. Not here yet: the fused
-prefill (``collect_len``, ``forward_with_cache``) waits for decoding
-(ROADMAP Queue 1 item 9d).
+plain ones, the MoE and RWKV-6's channel-mix. ``forward_with_cache`` is the
+fused prefill: one forward that also builds the decode cache of
+``decoding.py`` (``block_apply(..., collect_len=)``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
+from repro_torch.common import tree as tr
 from repro_torch.common.nodes import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -160,22 +165,36 @@ def _attn_apply_train(p, cfg: ModelConfig, x, kind: str, q_offset: int = 0,
 def block_apply(p, cfg: ModelConfig, layer: int, x,
                 enc_kv=None, decoder: bool = True,
                 collect_len: Optional[int] = None):
-    """Training forward for one block. ``collect_len`` (the fused prefill's
-    decode cache) is not ported yet."""
-    if collect_len is not None:
-        raise NotImplementedError(
-            "collect_len (the fused prefill's decode cache) is not ported "
-            "yet (ROADMAP Queue 1 item 9d: steps and decoding)")
+    """Training forward for one block.
+
+    ``collect_len``: if set, also build and return this layer's decode cache
+    (fused prefill — K/V and recurrent states are captured in the same pass
+    instead of replaying the layer). Returns x, or (x, cache_dict).
+    """
     mixer = cfg.mixer_of(layer)
     mlp_kind = cfg.mlp_of(layer)
+    s = x.shape[1]
+    lc = {} if collect_len is not None else None
 
     h = _norm(cfg, p["norm1"], x)
     if mixer in ATTN_MIXERS:
-        y, _ = _attn_apply_train(p["mixer"], cfg, h, mixer)
+        y, (k, v) = _attn_apply_train(p["mixer"], cfg, h, mixer)
+        if lc is not None:
+            lc.update(_collect_attn_cache(cfg, mixer, k, v, s, collect_len))
     elif mixer == "rglru":
-        y = rglru_lib.rglru_block(p["mixer"], h)
+        if lc is not None:
+            y, lc["kind_rglru"] = rglru_lib.rglru_block(
+                p["mixer"], h, return_state=True)
+        else:
+            y = rglru_lib.rglru_block(p["mixer"], h)
     elif mixer == "rwkv6":
-        y = rwkv_lib.rwkv6_time_mix(p["mixer"], h, cfg.rwkv_head_size)
+        if lc is not None:
+            y, (s_f, shift_f) = rwkv_lib.rwkv6_time_mix(
+                p["mixer"], h, cfg.rwkv_head_size, return_state=True)
+            lc["kind_rwkv"] = rwkv_lib.RWKV6State(
+                s=s_f, tm_shift=shift_f, cm_shift=torch.zeros_like(shift_f))
+        else:
+            y = rwkv_lib.rwkv6_time_mix(p["mixer"], h, cfg.rwkv_head_size)
     else:
         raise ValueError(mixer)
     if cfg.use_post_norm:
@@ -198,12 +217,43 @@ def block_apply(p, cfg: ModelConfig, layer: int, x,
             group_size=cfg.moe_group_size)
     elif mlp_kind == "rwkv_cmix":
         y, _ = rwkv_lib.rwkv6_cmix(p["mlp"], h)
+        if lc is not None:
+            lc["cmix_shift"] = h.to(torch.float32)[:, -1]
     else:
         y = mlp_lib.mlp_apply(p["mlp"], h, mlp_kind)
     if cfg.use_post_norm:
         y = _norm(cfg, p["post_norm2"], y)
     x = x + y
-    return constrain(x, ("batch", "seq", "embed"))
+    x = constrain(x, ("batch", "seq", "embed"))
+    if lc is not None:
+        return x, lc
+    return x
+
+
+def _collect_attn_cache(cfg: ModelConfig, mixer: str, k, v, s: int,
+                        max_len: int):
+    """Pack prefill K/V [B, S, Hkv, D] into the decode cache layout: the
+    whole prompt into a fresh full cache, or its last ``min(window, S)``
+    positions into a ring, position p at slot ``p % window``."""
+    b, _, hkv, hd = k.shape
+    dev = k.device
+    if mixer in ("attn", "bidir_attn"):
+        cache = attn_lib.empty_cache(b, max_len, hkv, hd, k.dtype,
+                                     device=dev)
+        cache.k[:, :s] = k
+        cache.v[:, :s] = v
+        cache.length.fill_(s)
+        return {"kind_attn": cache}
+    wnd = min(cfg.local_window, max_len)
+    take = min(wnd, s)
+    positions = torch.arange(s - take, s, device=dev)
+    slots = positions % wnd
+    cache = attn_lib.empty_ring_cache(b, wnd, hkv, hd, k.dtype, device=dev)
+    cache.k[:, slots] = k[:, s - take:]
+    cache.v[:, slots] = v[:, s - take:]
+    cache.pos[slots] = positions.to(torch.int32)
+    cache.length.fill_(s)
+    return {"kind_local": cache}
 
 
 # ==========================================================================
@@ -311,9 +361,33 @@ def _embed_inputs(p, cfg: ModelConfig, batch: dict):
         s = x.shape[1]
         x = x + p["pos"]["pos"][:s]
     if cfg.scale_embed:                                   # gemma family
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * embed_scale(cfg, x)
     return x, prefix
+
+
+def embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """sqrt(d_model) in ``x``'s dtype, as a 0-dim tensor on its device (a
+    fill, not a copy from the host), as JAX rounds it before the
+    product."""
+    return torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+
+
+def _remat(fn, x: torch.Tensor, *args):
+    """``fn(x, *args)``; while autograd records through ``x``, checkpointed
+    (JAX's ``jax.checkpoint``): its activations are recomputed in the
+    backward instead of kept."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.utils.checkpoint.checkpoint(fn, x, *args,
+                                                 use_reentrant=False)
+    return fn(x, *args)
+
+
+def _enc_layer(x, lp, cfg: ModelConfig):
+    h = _norm(cfg, lp["norm1"], x)
+    y, _ = _attn_apply_train(lp["mixer"], cfg, h, "bidir_attn")
+    x = x + y
+    h = _norm(cfg, lp["norm2"], x)
+    return x + mlp_lib.mlp_apply(lp["mlp"], h, cfg.mlp_of(0))
 
 
 def _encode(p, cfg: ModelConfig, frames: torch.Tensor):
@@ -321,12 +395,7 @@ def _encode(p, cfg: ModelConfig, frames: torch.Tensor):
     x = frames.to(_dtype(cfg.compute_dtype))
     x = x + p["enc_pos"]["pos"][:x.shape[1]]
     for i in range(cfg.encoder_layers):
-        lp = _index(p["encoder"], i)
-        h = _norm(cfg, lp["norm1"], x)
-        y, _ = _attn_apply_train(lp["mixer"], cfg, h, "bidir_attn")
-        x = x + y
-        h = _norm(cfg, lp["norm2"], x)
-        x = x + mlp_lib.mlp_apply(lp["mlp"], h, cfg.mlp_of(0))
+        x = _remat(_enc_layer, x, _index(p["encoder"], i), cfg)
     return _norm(cfg, p["enc_norm"], x)
 
 
@@ -358,7 +427,8 @@ def forward(p, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         if enc_out is not None:
             ekv = (L.dense(lp["cross"]["wk"], enc_out),
                    L.dense(lp["cross"]["wv"], enc_out))
-        x = block_apply(lp, cfg, layer, x, enc_kv=ekv)
+        x = _remat(lambda x, lp, ekv, layer=layer: block_apply(
+            lp, cfg, layer, x, enc_kv=ekv), x, lp, ekv)
 
     x = _norm(cfg, p["final_norm"], x)
     if prefix:
@@ -366,6 +436,43 @@ def forward(p, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     head = p["embed"] if cfg.tie_embeddings else p["unembed"]
     logits = L.unembed(head, x, cfg.logit_softcap)
     return constrain(logits, ("batch", "seq", "vocab"))
+
+
+def forward_with_cache(p, cfg: ModelConfig, batch: dict, max_len: int):
+    """Fused prefill: one forward pass that also builds the decode cache.
+
+    Returns (logits [B, S_tokens, Vp], cache, enc_out or None). Cache layout
+    matches ``repro_torch.models.decoding.init_cache``: for a stacked
+    pattern, slot s's caches of the repeats stacked into ``[R, ...]``
+    leaves; otherwise one cache a layer.
+    """
+    x, prefix = _embed_inputs(p, cfg, batch)
+    x = constrain(x, ("batch", "seq", "embed"))
+
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(p, cfg, batch["frames"])
+
+    caches = []
+    for layer, lp in _layer_params(p, cfg):
+        ekv = None
+        if enc_out is not None:
+            ekv = (L.dense(lp["cross"]["wk"], enc_out),
+                   L.dense(lp["cross"]["wv"], enc_out))
+        x, lc = block_apply(lp, cfg, layer, x, enc_kv=ekv,
+                            collect_len=max_len)
+        caches.append(lc)
+    period = cfg.uniform_period
+    if period < cfg.num_layers:
+        caches = [tr.tree_map(lambda *xs: torch.stack(xs), *caches[s::period])
+                  for s in range(period)]
+
+    x = _norm(cfg, p["final_norm"], x)
+    if prefix:
+        x = x[:, prefix:]
+    head = p["embed"] if cfg.tie_embeddings else p["unembed"]
+    logits = L.unembed(head, x, cfg.logit_softcap)
+    return constrain(logits, ("batch", "seq", "vocab")), caches, enc_out
 
 
 def lm_loss(p, cfg: ModelConfig, batch: dict):

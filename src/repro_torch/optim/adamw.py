@@ -11,6 +11,14 @@ Scalars that divide (the clip threshold, 1 - b^t) are 0-dim tensors on
 the leaves' device, so the card divides as IEEE does: PyTorch's CUDA
 division by a Python number multiplies by its reciprocal, and
 ``number / tensor`` is a reciprocal times the number.
+
+Memory: a leaf of more than ``CHUNK_ELEMS`` elements (a stacked layer
+group, a stack of experts, an embedding table) is updated a block of
+leading rows at a time, so the f32 temporaries of the update are a
+block's, not the leaf's (the update is elementwise: the same values). With ``consume_grads=True`` and ``grads`` a list of
+leaves, each gradient is dropped from the list once its leaf is updated,
+so a caller that holds no other reference frees it there: the old state,
+the new state and the gradients are then never all alive at once.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 from repro_torch.common import tree as tr
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the most elements a leaf's update takes at once (64 MB of f32)
+CHUNK_ELEMS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +70,17 @@ def adamw_init(params, cfg: AdamWConfig) -> OptState:
 
 
 def adamw_update(params, grads, state: OptState, cfg: AdamWConfig,
-                 lr_scale=1.0):
+                 lr_scale=1.0, *, consume_grads: bool = False):
     """One AdamW step. Returns ``(new_params, new_state, metrics)``;
     ``metrics`` holds the f32 ``grad_norm`` (before clipping) and
-    ``lr``."""
+    ``lr``. ``grads`` is a tree like ``params`` or the list of its leaves
+    in flattening order; ``consume_grads`` empties that list (see the
+    module docstring)."""
     device = state.step.device
-    gnorm = tr.tree_global_norm(grads).to(device)
+    flat_g = grads if consume_grads else tr.tree_leaves(grads)
+    if consume_grads and not isinstance(flat_g, list):
+        raise ValueError("consume_grads needs the gradients as a list")
+    gnorm = tr.tree_global_norm(flat_g).to(device)
     clip = (torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                         / torch.clamp(gnorm, min=1e-9), max=1.0)
             if cfg.grad_clip > 0 else torch.ones((), device=device))
@@ -74,21 +89,44 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig,
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
     lr = cfg.lr * lr_scale
 
-    def upd(p, g, mu, nu):
+    def upd(p, g, mu, nu, decay: bool):
         gf = g.to(torch.float32) * clip
         mu_n = cfg.b1 * mu.to(torch.float32) + (1 - cfg.b1) * gf
         nu_n = cfg.b2 * nu.to(torch.float32) + (1 - cfg.b2) * torch.square(gf)
         mu_hat = mu_n / b1c
         nu_hat = nu_n / b2c
         delta = mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
-        if cfg.weight_decay > 0 and p.ndim >= 2:   # decay matrices only
+        if decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p_n = p.to(torch.float32) - lr * delta
         return p_n.to(p.dtype), mu_n.to(mu.dtype), nu_n.to(nu.dtype)
 
-    leaves = zip(tr.tree_leaves(params), tr.tree_leaves(grads),
-                 tr.tree_leaves(state.mu), tr.tree_leaves(state.nu))
-    out = [upd(p, g, m, n) for p, g, m, n in leaves]
+    def leaf(p, g, mu, nu):
+        decay = cfg.weight_decay > 0 and p.ndim >= 2   # decay matrices only
+        if p.numel() <= CHUNK_ELEMS:
+            return upd(p, g, mu, nu, decay)
+        rows = max(1, CHUNK_ELEMS * p.shape[0] // p.numel())
+        out = tuple(torch.empty_like(x) for x in (p, mu, nu))
+        for i in range(0, p.shape[0], rows):
+            sl = slice(i, i + rows)
+            for o, x in zip(out, upd(p[sl], g[sl], mu[sl], nu[sl], decay)):
+                o[sl] = x
+        return out
+
+    p_leaves = tr.tree_leaves(params)
+    if len(flat_g) != len(p_leaves):
+        raise ValueError(f"{len(flat_g)} gradients for {len(p_leaves)} "
+                         f"parameters")
+    mu_leaves, nu_leaves = tr.tree_leaves(state.mu), tr.tree_leaves(state.nu)
+    out = [None] * len(p_leaves)
+    # the largest leaves first: the last gradient still alive when the
+    # new state is almost whole is then a small one
+    for i in sorted(range(len(p_leaves)), key=lambda j: -p_leaves[j].numel()):
+        g = flat_g[i]
+        if consume_grads:
+            flat_g[i] = None
+        out[i] = leaf(p_leaves[i], g, mu_leaves[i], nu_leaves[i])
+        del g
     new_p, new_mu, new_nu = (tr.tree_unflatten(like, [o[i] for o in out])
                              for i, like in enumerate(
                                  (params, state.mu, state.nu)))

@@ -679,13 +679,15 @@ class TestDriverPasses:
 
     def test_targets_cover_every_engine_and_backend(self):
         names = set(dp.driver_targets("cpu"))
-        assert len(names) == 22
+        assert len(names) == 24
         for engine in ("oneshot", "streaming", "generated",
                        "generated_streaming"):
             for backend in dp.BACKENDS:
                 assert f"drivers:{engine}/{backend}" in names
         assert {"drivers:serve_snapshot/mapreduce",
-                "drivers:serve_query/ref"} <= names
+                "drivers:serve_query/ref",
+                "drivers:lm_prefill_decode/gemma2_2b",
+                "drivers:lm_train_step/gemma2_2b"} <= names
 
     def test_the_cli_never_falls_back_from_cuda(self, monkeypatch):
         """--device cuda without a card: every driver raises (DR001), the
@@ -693,7 +695,7 @@ class TestDriverPasses:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         ctx = AnalysisContext(device="cuda")
         found = dp.run_pass(ctx)
-        assert len(found) == 22
+        assert len(found) == 24
         assert all("device='cpu'" in f.message or "CUDA" in f.message
                    for f in found)
 

@@ -1512,3 +1512,156 @@ def test_flash_attention_on_card_equals_naive(cuda_device, case):
     torch.testing.assert_close(got_bf.cpu().float(),
                                flash_attention(*bf, **kw).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+# ------------------------------------------------- train and decode steps
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bmm_f32_gradient_on_card_equals_cpu(cuda_device, dtype):
+    """``_bmm_f32``'s gradients on the card (the f32-output product's own
+    backward at bf16) against autograd through the CPU's widened operands:
+    f32 within rtol = atol = 1e-4 (summation order), bf16 within one bf16
+    ulp (rtol = atol = 2^-7: the same f32 products rounded once)."""
+    from repro_torch.models.attention import _bmm_f32
+
+    g = torch.Generator().manual_seed(11)
+    dt = getattr(torch, dtype)
+    a = torch.randn((4, 33, 16), generator=g).to(dt)
+    b = torch.randn((4, 16, 40), generator=g).to(dt)
+    dc = torch.randn((4, 33, 40), generator=g)
+
+    def grads(device):
+        x = a.to(device).requires_grad_(True)
+        y = b.to(device).requires_grad_(True)
+        out = _bmm_f32(x, y)
+        assert out.dtype == torch.float32
+        out.backward(dc.to(device))
+        return out.detach().cpu(), x.grad.cpu(), y.grad.cpu()
+
+    tol = (dict(rtol=2 ** -7, atol=2 ** -7) if dtype == "bfloat16"
+           else dict(rtol=1e-4, atol=1e-4))
+    for got, want in zip(grads(cuda_device), grads("cpu")):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_card(cuda_device, monkeypatch):
+    """One bf16 ``make_train_step`` of llama3-8b's smoke config on the
+    card, through the f32-output product's backward: a finite loss and
+    grad norm within 5e-2 relative of the CPU's step from the same
+    parameters (bf16 products round differently), moved parameters, and
+    an input state left as it was."""
+    from repro_torch.common import tree as tr
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import steps as S
+    from repro_torch.optim import AdamWConfig
+
+    calls = []
+    real = A._BmmF32.apply
+    monkeypatch.setattr(A._BmmF32, "apply",
+                        lambda *a: calls.append(1) or real(*a))
+    cfg = get_smoke_config("llama3_8b")
+    opt = AdamWConfig(lr=1e-3)
+    state, _ = S.make_train_state(
+        cfg, opt, generator=torch.Generator(device=cuda_device)
+        .manual_seed(0), device=cuda_device)
+    cpu_state = tr.tree_map(lambda x: x.cpu(), state)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 32), dtype=np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    step = S.make_train_step(cfg, opt, warmup_steps=1)
+    new, m = step(state, {k: v.to(cuda_device) for k, v in batch.items()})
+    assert calls, "the card's attention did not take the f32-output product"
+    _, cm = step(cpu_state, batch)
+    for key in ("loss", "grad_norm"):
+        assert torch.isfinite(m[key]).item()
+        torch.testing.assert_close(m[key].cpu(), cm[key], rtol=5e-2,
+                                   atol=0)
+    before = state.params["layers"][0]["mixer"]["wq"]["w"]
+    assert before.dtype == torch.bfloat16
+    assert not torch.equal(new.params["layers"][0]["mixer"]["wq"]["w"],
+                           before)
+    assert torch.equal(before.cpu(),
+                       cpu_state.params["layers"][0]["mixer"]["wq"]["w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "gemma2_2b",
+                                  "recurrentgemma_2b", "rwkv6_7b"])
+def test_decode_on_card_equals_cpu(cuda_device, arch):
+    """The f32 smoke model from one set of parameters: the fused prefill
+    of 20 tokens and two decode steps on the card against the CPU's,
+    logits and every float cache leaf within 2e-3, ``length`` and ``pos``
+    exact (gemma2's and recurrentgemma's rings of 16 wrap)."""
+    from repro_torch.common import tree as tr
+    from repro_torch.models import decoding as D
+    from repro_torch.models import transformer as T
+
+    cfg = _f32_smoke(arch)
+    p, _ = T.init_params(cfg, generator=torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    cpu_p = tr.tree_map(lambda x: x.cpu(), p)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 22), dtype=np.int32))
+
+    def run(params, device):
+        last, cache, _ = D.prefill(params, cfg, {"tokens": toks[:, :20]
+                                                 .to(device)}, 36)
+        out = [last]
+        for i in (20, 21):
+            lg, cache = D.decode_step(params, cfg, toks[:, i:i + 1]
+                                      .to(device), cache)
+            out.append(lg)
+        return [x.cpu() for x in out], tr.tree_flatten_with_paths(cache)
+
+    got, got_cache = run(p, cuda_device)
+    want, want_cache = run(cpu_p, "cpu")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    assert [n for n, _ in got_cache] == [n for n, _ in want_cache]
+    for (name, a), (_, b) in zip(got_cache, want_cache):
+        if b.dtype == torch.int32:
+            assert torch.equal(a.cpu(), b), name
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_decode_writes_the_cache_in_place_on_card(cuda_device):
+    """Eight decode steps of a stacked 8-layer model with a 4,096-token
+    cache: the cache's buffers keep their addresses, and the memory
+    allocated beyond what was held before the steps peaks below half the
+    cache's bytes (a second copy of the cache would need all of them; one
+    layer's K and V, the decode attention's transient layout, need an
+    eighth)."""
+    import dataclasses
+
+    from repro_torch.common import tree as tr
+    from repro_torch.models import decoding as D
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(_f32_smoke("llama3_8b"), num_layers=8)
+    assert cfg.uniform_period < cfg.num_layers
+    p, _ = T.init_params(cfg, generator=torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda_device)
+    with torch.inference_mode():
+        logits, cache, _ = D.prefill(p, cfg, {"tokens": toks}, 4096)
+        leaves = tr.tree_leaves(cache)
+        ptrs = [x.data_ptr() for x in leaves]
+        cache_bytes = tr.tree_bytes(cache)
+        del logits
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        before = torch.cuda.memory_allocated(cuda_device)
+        tok = toks[:, :1]
+        for _ in range(8):
+            _, cache = D.decode_step(p, cfg, tok, cache)
+        torch.cuda.synchronize(cuda_device)
+        peak = torch.cuda.max_memory_allocated(cuda_device) - before
+    assert [x.data_ptr() for x in tr.tree_leaves(cache)] == ptrs
+    assert int(cache[0]["kind_attn"].length[0]) == 16 + 8
+    assert peak < cache_bytes / 2, (peak, cache_bytes)

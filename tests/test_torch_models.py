@@ -584,8 +584,18 @@ def test_forward_shapes_and_finite_bf16(arch):
 
 
 def test_fused_prefill_waits_for_9d():
+    """ROADMAP item 9d (steps and decoding) has landed: ``collect_len``
+    no longer raises; the block returns its output unchanged beside the
+    layer's decode cache (``tests/test_torch_decoding.py`` holds the
+    caches against JAX's)."""
     cfg = port_cfg("llama3_8b")
     p, _ = T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="9d"):
-        T.block_apply(T._index(p["layers"][0], 0), cfg, 0,
-                      torch.zeros(1, 4, cfg.d_model), collect_len=8)
+    lp = T._index(p["layers"][0], 0)
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    y, cache = T.block_apply(lp, cfg, 0, x, collect_len=8)
+    torch.testing.assert_close(y, T.block_apply(lp, cfg, 0, x), rtol=0,
+                               atol=0)
+    assert cache["kind_attn"].k.shape == (1, 8, cfg.num_kv_heads,
+                                          cfg.resolved_head_dim)
+    assert int(cache["kind_attn"].length) == 4
