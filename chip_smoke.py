@@ -145,7 +145,8 @@
    ``tools/gang_check.py``) whose ranks share the card and join over
    gloo, each holding P/N of the 8 nodes, at ``MalGenConfig()`` widths,
    8 nodes x 8 steps of 2^20 records: mapreduce counting at N = 1, 2 and
-   4 ranks in 3 interleaved turns, and at N = 2 (first turn) streams and
+   4 ranks in one turn (three, interleaved, until phase 16 came: cut for
+   the script's time limit), and at N = 2 streams and
    the overlap runner on and off. Every rank's histogram, rho bits and
    ShuffleStats equal this process's one-process engine over the same
    seed, and every rank launches exactly its nodes' kernels (K6 twice a
@@ -236,9 +237,10 @@
    differ), forward ms (median of 3), tokens/s, peak memory, the FLOPs
    the code computes and their share of the 989 TFLOP/s bf16 peak. (3)
    The top operators and kernels by device time of one profiled forward
-   in a fresh process (``--model-profile-child ARCH LAYERS``): llama3-8b
-   and recurrentgemma-2b at full depth, rwkv6-7b at 2 layers with one
-   block profiled alone (its launches x 30 more layers give a full
+   in a fresh process (``--model-profile-child ARCH LAYERS``):
+   llama3-8b and recurrentgemma-2b at full depth, rwkv6-7b at 1 layer
+   (2 until phase 16 came: cut for the script's time limit) with one
+   block profiled alone (its launches x 31 more layers give a full
    forward's), and each recurrent scan's launches. (4) The RG-LRU scan
    over ``[1, 4096, 2560]`` and the WKV loop over ``[1, 4096, 64, 64]``
    alone at f32, ms (median of 5, CUDA events) against their bounds.
@@ -254,17 +256,17 @@
    recurrentgemma-2b and rwkv6-7b on the card against the CPU's: loss and
    grad norm within 2e-3 relative, every gradient leaf within 2e-3 x its
    max |g| + 1e-6. (2) The ten architectures serving at full width and
-   bf16 through ``launch/serve_lm.py``'s ``greedy_generate``, 64 greedy
+   bf16 through ``launch/serve_lm.py``'s ``greedy_generate``, 32 greedy
    tokens (B = 4, a prompt of 2,048; gemma2 B = 1 and 4,096; internvl2
    256 patches + 1,792 tokens; whisper 384 tokens; grok-1 2 of 64 layers
    at B = 1): finite logits, ids in the real vocabulary, each ring's
    positions exact after the prefill and every step (recurrentgemma's and
-   gemma2's rings wrap); prefill ms, decode ms a token (median of 63
+   gemma2's rings wrap); prefill ms, decode ms a token (median of 31
    steps, CUDA events) against the floor of the weights and the cache
    read once, tokens/s, peak memory, cache bytes, and the kernels a decode
    step launches (profiled in a fresh process, ``--decode-profile-child``);
    no K1-K7 launch. (3) qwen1.5-4b, granite-moe-1b-a400m and
-   recurrentgemma-2b train 12 steps at full width through
+   recurrentgemma-2b train 10 steps at full width through
    ``launch/train.py``'s ``main`` (8 x 256 malgen tokens, no checkpoint):
    finite losses, K6 once a batch plus once for the marked stream, K7 once
    a doctor run, nothing else; steps/s, tokens/s, peak memory (in a
@@ -272,13 +274,31 @@
    qwen1.5-4b's old and new state alone take 73.6 GiB). (4) Phase
    13's bad-host run with llama3-8b's smoke model step at bf16: host 5
    blocklisted and absent from the last 16 steps, finite losses.
+16. Pipeline parallelism (ROADMAP Queue 1 item 9e,
+   ``repro_torch.distributed.pipeline_apply``): (a) llama3-8b's 32
+   blocks at full width and bf16 as 4 stages of 8 (``block_apply``, layer
+   ``stage * 8 + j``; stage i's blocks from a generator seeded 30 + i,
+   ``tools/pipeline_gang.py``), 8 microbatches of ``[1, 2048, 4096]``
+   hidden states under ``torch.no_grad``: the output bit-equal to the
+   same blocks applied to each microbatch in turn, and within
+   ``PIPE_WHOLE_TOL`` x its mean |value| of the whole ``[8, 2048]``
+   batch through them;
+   pipeline and sequential ms (interleaved turns, CUDA events), their
+   ratio, and JAX's bubble fraction (s - 1) / (m + s - 1) = 3/11. (b)
+   Gloo gangs sharing the card (``tools/pipeline_gang.py``, each rank
+   building only its own stages): 4 ranks of one stage, then 2 of two;
+   every rank's output bit-equal to (a)'s; run ms, the bytes a rank hands
+   to gloo and gloo's share of a run (``ExchangeClock``). (c) JAX's toy
+   (``tests/md_scripts/pipeline_check.py``: s = 4, m in {4, 8}, mb = 2, d
+   = 8) on the card against the port on the CPU within 1e-5. No K1-K7
+   launch.
 
 Prints one JSON line of per-kernel numbers (``launches`` from the main
 path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
 phase 10's two fault-free runs, mapreduce and streams, ``gang_launches``
 from rank 0 of phase 11's mapreduce gang of 2, ``trainer_launches`` from
 phase 13's real-clock run, ``lm_train_launches`` from phase 15's three
-training runs), then ``{"sanitizer": ...}`` (what phase 12's
+training runs, ``pipe_launches`` from phase 16), then ``{"sanitizer": ...}`` (what phase 12's
 compute-sanitizer did), then the card's name and power limit as
 nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the last
 line. Exits non-zero, printing no result, without a CUDA device or when
@@ -348,7 +368,7 @@ BENCH_TRANSIENT = "faulty_run_transient"
 # mapreduce counting at every gang size, streams and the overlap runner at
 # 2 ranks
 GANG_SIZES = (1, 2, 4)
-GANG_TURNS = 3
+GANG_TURNS = 1          # 3 until phase 16 came: cut for the time limit
 GANG_MAIN = "seed_mapreduce_counting"
 GANG_CASES = {1: (GANG_MAIN,),
               2: (GANG_MAIN, "seed_streams",
@@ -382,10 +402,12 @@ ADAMW_STEPS, ADAMW_TURNS, ADAMW_SEED = 3, 5, 26
 # 4096-token window masks, internvl2 256 patches + 3840 tokens, whisper
 # 448 decoder tokens over 1500 frames, grok-1 at 2 of 64 layers (631 GB at
 # full depth), rwkv6-7b at 8 of 32 (its host-bound forward took 10-12 s
-# at full depth: cut for the script's time limit when phase 15 came); (3) the top device ops of llama3-8b, recurrentgemma-2b and
-# rwkv6-7b at 2 layers (a full-depth trace would hold about a million
-# kernel records), each profiled in a fresh process; (4) the recurrent
-# scans alone at one layer's shape
+# at full depth: cut for the script's time limit when phase 15 came); (3)
+# the top device ops of llama3-8b and recurrentgemma-2b at full depth and
+# rwkv6-7b at 1 layer (a full-depth rwkv6 trace would hold about a million
+# kernel records; 2 layers until phase 16 came: cut for the time limit),
+# each profiled in a fresh process; (4) the recurrent scans alone
+# at one layer's shape
 MODEL_SEED = 27
 MODEL_CHECKS = (("llama3_8b", 2, 256), ("gemma2_2b", 2, 512),
                 ("granite_moe_1b_a400m", 2, 512),
@@ -397,7 +419,7 @@ MODEL_RUNS = (("llama3_8b", None, 4096), ("gemma2_2b", None, 8192),
               ("whisper_small", None, 448),
               ("recurrentgemma_2b", None, 4096), ("rwkv6_7b", 8, 4096))
 MODEL_PROFILES = (("llama3_8b", None), ("recurrentgemma_2b", None),
-                  ("rwkv6_7b", 2))
+                  ("rwkv6_7b", 1))
 MODEL_TURNS = 3
 SCAN_TURNS = 5
 SCAN_SEQ = 4096
@@ -429,10 +451,31 @@ SERVE_RUNS = (("llama3_8b", None, 4, 2048), ("gemma2_2b", None, 1, 4096),
               ("whisper_small", None, 4, 384),
               ("recurrentgemma_2b", None, 4, 2048),
               ("rwkv6_7b", None, 4, 2048))
-SERVE_TOKENS = 64
+SERVE_TOKENS = 32
 LM_TRAIN_RUNS = ("qwen1_5_4b", "granite_moe_1b_a400m", "recurrentgemma_2b")
-LM_TRAIN_ARGS = ("--steps", "12", "--batch", "8", "--seq-len", "256",
+LM_TRAIN_STEPS = 10       # 12 until phase 16 came; 10 keeps a doctor run
+LM_TRAIN_ARGS = ("--steps", str(LM_TRAIN_STEPS), "--batch", "8",
+                 "--seq-len", "256",
                  "--data", "malgen", "--ckpt-every", "100")
+# phase 16: pipeline parallelism (ROADMAP Queue 1 item 9e): llama3-8b's 32
+# blocks at full width and bf16 (configs/llama3_8b.py) in 4 stages of 8, 8
+# microbatches of [1, 2048, 4096] hidden states; in one process, then over
+# gloo gangs of 4 x 1 and 2 x 2 stages sharing the card; JAX's toy
+# (tests/md_scripts/pipeline_check.py) on the card against the CPU
+PIPE_ARCH = "llama3_8b"
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 2048
+PIPE_GANGS = (4, 2)
+PIPE_TURNS = 3
+PIPE_GANG_RUNS = 3
+PIPE_TIMEOUT = 240
+# the pipeline's output against the whole batch through the same blocks:
+# every chip run read max |diff| 0 (PERF.md), so the bar is a few bf16 ulps
+# of the mean |value| (one ulp is 2^-8 to 2^-7 of a value): the largest
+# difference within 2^-6 of the mean |value|
+PIPE_WHOLE_TOL = 2.0**-6
+PIPE_TOY_S, PIPE_TOY_MB, PIPE_TOY_D = 4, 2, 8
+PIPE_TOY_M = (4, 8)
+PIPE_TOY_TOL = 1e-5
 # kernel names in a profile: generation (K6) and the fold (K1-K3)
 GEN_KERNELS = ("sample_kernel", "direct_kernel", "guide_kernel")
 FOLD_KERNELS = ("count_tiles_kernel", "scatter_tiles_kernel",
@@ -3184,9 +3227,9 @@ def gang_launches(stepper, rounds, ranks: int) -> dict:
 def gang(device, width: str = "full") -> dict:
     """Phase 11: gangs of ``tools/gang_check.py`` over gloo, their ranks
     sharing the card, at ``MalGenConfig()`` widths and 8 nodes x 8 steps of
-    2^20 records: mapreduce counting at N = 1, 2 and 4 ranks in 3
-    interleaved turns, and at N = 2 (first turn) streams and the overlap
-    runner on and off. Every rank's histogram, rho bits and ShuffleStats
+    2^20 records: mapreduce counting at N = 1, 2 and 4 ranks in
+    ``GANG_TURNS`` interleaved turns, and at N = 2 (first turn) streams
+    and the overlap runner on and off. Every rank's histogram, rho bits and ShuffleStats
     equal this process's one-process engine; each rank launches exactly
     its nodes' kernels. Then the launcher's one-shot log at N = 2 with
     ``--check``. (``width="small"`` is gang_check's test width, for a
@@ -5039,7 +5082,8 @@ def lm_training(device, root: pathlib.Path, card: str) -> dict:
                 total[k] = total.get(k, 0) + v
             hist = report["history"]
             losses = [h["loss"] for h in hist]
-            check(report["final_step"] == 12 and len(hist) == 12
+            check(report["final_step"] == LM_TRAIN_STEPS
+                  and len(hist) == LM_TRAIN_STEPS
                   and all(math.isfinite(x) for x in losses),
                   f"{arch} training: {report['final_step']} steps, losses "
                   f"{losses}")
@@ -5066,9 +5110,10 @@ def lm_training(device, root: pathlib.Path, card: str) -> dict:
                        launches={k: v for k, v in launches.items() if v})
             rows.append(row)
             log("lm", f"{card}: train {arch} full width through "
-                      f"launch/train.py, 12 steps of 8 x 256 malgen tokens: "
-                      f"{row['steps_per_s']:.3f} steps/s = "
-                      f"{row['tokens_per_s']:.1f} tokens/s over steps 2-12 "
+                      f"launch/train.py, {LM_TRAIN_STEPS} steps of 8 x 256 "
+                      f"malgen tokens: {row['steps_per_s']:.3f} steps/s = "
+                      f"{row['tokens_per_s']:.1f} tokens/s over steps "
+                      f"2-{LM_TRAIN_STEPS} "
                       f"(step p50 {row['step_s_p50']:.3f} s, the first "
                       f"{row['first_step_s']:.3f} s; host clock to "
                       f"float(loss)), main() {wall:.1f} s; peak "
@@ -5213,6 +5258,199 @@ def lm_phase(device, card: str) -> dict:
     return dict(f32=f32, serve=serve, train=train, bad_host=bad)
 
 
+# ------------------------------------------------------------- phase 16
+def pipe_tool():
+    """``tools/pipeline_gang.py``, the pipeline gang's worker, as a
+    module."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import pipeline_gang
+
+    return pipeline_gang
+
+
+def pipe_one_process(device, card: str, smoke: bool = False) -> dict:
+    """Phase 16 (a): the 32 blocks in 4 stages in this process (``smoke``:
+    at the config's smoke widths and 32 blocks, for a CPU rehearsal)."""
+    from repro_torch.common import tree as tr
+    from repro_torch.distributed import PipelineConfig, pipeline_apply
+    from repro_torch.launch import mesh
+
+    pg = pipe_tool()
+    cfg = pg.model_cfg(PIPE_ARCH, smoke=smoke,
+                       layers=32 if smoke else None)
+    seq = 16 if smoke else PIPE_SEQ
+    s, m = PIPE_STAGES, PIPE_MICRO
+    per = cfg.num_layers // s
+    t0 = time.perf_counter()
+    params = pg.stage_blocks(cfg, range(s), per, device)
+    x = pg.hidden_states(cfg, m, seq, device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    fn = pg.blocks_fn(cfg, per)
+    pcfg = PipelineConfig(num_stages=s, num_microbatches=m)
+    n_params = sum(t.numel() for t in tr.tree_leaves(params))
+
+    def piped():
+        return pipeline_apply(fn, params, x, pcfg)
+
+    def each():
+        return torch.cat([pg.sequential(fn, params, x[k:k + 1], s)
+                          for k in range(m)])
+
+    with torch.no_grad():
+        out = piped()
+        want = each()
+        check(torch.equal(out, want),
+              f"pipeline: the 4-stage output differs from the blocks "
+              f"applied a microbatch at a time (max |diff| "
+              f"{(out.float() - want.float()).abs().max().item():.3e})")
+        whole = pg.sequential(fn, params, x, s)
+        diff = (out.float() - whole.float()).abs()
+        ref = whole.float().abs()
+        max_diff = diff.max().item()
+        mean_ref = ref.mean().item()
+        check(torch.isfinite(out).all().item(), "pipeline: non-finite")
+        check(max_diff <= PIPE_WHOLE_TOL * mean_ref,
+              f"pipeline against the whole batch: max |diff| {max_diff:.3e}"
+              f" over {PIPE_WHOLE_TOL} x the mean |value| {mean_ref:.4e}")
+        del whole, diff, ref, want
+        ms = {"pipeline": [], "sequential": []}
+        for turn in range(PIPE_TURNS):
+            order = (("pipeline", piped), ("sequential", each))
+            for name, call in (order if turn % 2 == 0 else order[::-1]):
+                ms[name].append(time_ms(call, device, iters=1, warmup=0))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    bubble = (s - 1) / (m + s - 1)
+    log("pipe", f"[{card}] {PIPE_ARCH} {cfg.num_layers} blocks "
+                f"({n_params:,} parameters, bf16) in {s} stages of {per}, "
+                f"{m} microbatches of [1, {seq}, {cfg.d_model}]: "
+                f"bit-equal to the blocks a microbatch at a time; against "
+                f"the whole batch max |diff| {max_diff:.4e} (bar "
+                f"{PIPE_WHOLE_TOL:.4g} x the mean |value| {mean_ref:.4e}); "
+                f"built in {build_s:.1f} s")
+    log("pipe", f"[{card}] one process: pipeline ms {ms['pipeline']}, "
+                f"sequential ms {ms['sequential']}; medians "
+                f"{med['pipeline']:.3f} / {med['sequential']:.3f} = "
+                f"{med['pipeline'] / med['sequential']:.4f}; JAX's bubble "
+                f"fraction (s - 1) / (m + s - 1) = {s - 1}/{m + s - 1} = "
+                f"{bubble:.4f}; peak "
+                f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
+    result = dict(digest=mesh.checksum([out]), ms=ms, median_ms=med,
+                  max_diff=max_diff, mean_ref=mean_ref, bubble=bubble,
+                  shape=list(out.shape))
+    del params, x, out
+    return result
+
+
+def pipe_gangs(device, card: str, one: dict, smoke: bool = False) -> dict:
+    """Phase 16 (b): the same pipeline over gloo gangs sharing the card,
+    every rank's output bit-equal to the one-process run's."""
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_"))
+    out = {}
+    try:
+        for n in PIPE_GANGS:
+            dest = root / f"n{n}"
+            t0 = time.perf_counter()
+            rc, stdout, stderr = run_in_session(
+                [str(ROOT / "tools" / "pipeline_gang.py"),
+                 "--num-processes", str(n), "--arch", PIPE_ARCH,
+                 "--stages", str(PIPE_STAGES),
+                 "--microbatches", str(PIPE_MICRO),
+                 "--batch", str(PIPE_MICRO),
+                 "--seq", str(16 if smoke else PIPE_SEQ),
+                 "--device", device.type, "--runs", str(PIPE_GANG_RUNS),
+                 "--out", str(dest), "--timeout", str(PIPE_TIMEOUT - 30)]
+                + (["--smoke", "--layers", "32"] if smoke else []),
+                PIPE_TIMEOUT)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"pipeline gang of {n} exited {rc}: "
+                           f"{stdout[-2000:]}\n{stderr[-3000:]}")
+            ranks = [json.loads((dest / f"rank{r}.json").read_text())
+                     for r in range(n)]
+            for r, res in enumerate(ranks):
+                check(res["digest"] == one["digest"]
+                      and res["shape"] == one["shape"],
+                      f"pipeline gang of {n}, rank {r}: output differs from "
+                      f"the one-process pipeline's")
+            ms = [statistics.median(res["ms"]) for res in ranks]
+            shares = [res["clock"]["gloo_ms"] / sum(res["ms"])
+                      for res in ranks]
+            per_run = [res["clock"]["bytes"] / PIPE_GANG_RUNS
+                       for res in ranks]
+            out[n] = dict(ms=[res["ms"] for res in ranks],
+                          median_ms=max(ms), gloo_share=shares,
+                          bytes_per_run=per_run,
+                          clock=[res["clock"] for res in ranks],
+                          peak_gib=[(res["peak_bytes"] or 0) / 2**30
+                                    for res in ranks],
+                          build_s=[res["build_s"] for res in ranks])
+            log("pipe", f"[{card}] gang of {n} x {PIPE_STAGES // n} "
+                        f"stage(s): every rank bit-equal to the one-process "
+                        f"pipeline; run ms by rank "
+                        f"{[round(v, 3) for v in ms]} (median of "
+                        f"{PIPE_GANG_RUNS}; one process "
+                        f"{one['median_ms']['pipeline']:.3f}), "
+                        f"{max(ms) / one['median_ms']['pipeline']:.4f}x; "
+                        f"bytes to gloo a rank a run "
+                        f"{[int(b) for b in per_run]}; gloo's share of a "
+                        f"run by rank {[round(v, 4) for v in shares]}; "
+                        f"clock of rank 0 {json.dumps(out[n]['clock'][0])}; "
+                        f"peak GiB by rank "
+                        f"{[round(v, 3) for v in out[n]['peak_gib']]}; "
+                        f"{wall:.1f} s wall (started, built, run)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def pipe_toy(device, card: str) -> float:
+    """Phase 16 (c): JAX's pipeline_check toy on the card against the
+    port on the CPU."""
+    from repro_torch.distributed import PipelineConfig, pipeline_apply
+
+    def fn(params, x, stage):
+        return torch.tanh(x @ params)
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((PIPE_TOY_S, PIPE_TOY_D, PIPE_TOY_D), generator=g) * 0.3
+    worst = 0.0
+    for m in PIPE_TOY_M:
+        x = torch.randn((m * PIPE_TOY_MB, PIPE_TOY_D), generator=g)
+        pcfg = PipelineConfig(PIPE_TOY_S, m)
+        want = pipeline_apply(fn, w, x, pcfg)
+        got = pipeline_apply(fn, w.to(device), x.to(device), pcfg).cpu()
+        err = (got - want).abs().max().item()
+        check(got.shape == x.shape and err <= PIPE_TOY_TOL,
+              f"pipeline toy m={m}: card against CPU {err:.3e}")
+        worst = max(worst, err)
+    log("pipe", f"[{card}] JAX's pipeline_check toy (s = {PIPE_TOY_S}, m in "
+                f"{PIPE_TOY_M}, mb = {PIPE_TOY_MB}, d = {PIPE_TOY_D}): card "
+                f"against CPU max |diff| {worst:.3e} (bar {PIPE_TOY_TOL})")
+    return worst
+
+
+def pipe_phase(device, card: str, smoke: bool = False) -> dict:
+    """Phase 16: pipeline parallelism on the card (``smoke``: the smoke
+    widths, for a rehearsal on the CPU)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    sync(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    one = pipe_one_process(device, card, smoke)
+    sync(device)
+    torch.cuda.empty_cache()
+    gangs = pipe_gangs(device, card, one, smoke)
+    toy = pipe_toy(device, card)
+    launches = launch_counts()
+    launched = {k: v for k, v in launches.items() if v}
+    check(not launched, f"the pipeline launched {launched}")
+    log("pipe", f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return dict(one=one, gangs=gangs, toy=toy, launches=launches)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--sanitizer-child"]:
         return sanitizer_child()
@@ -5277,6 +5515,9 @@ def main() -> int:
         for row in kernels:
             row["lm_train_launches"] = lm["train"]["launches"].get(
                 row["name"], 0)
+        pipe = pipe_phase(device, card)
+        for row in kernels:
+            row["pipe_launches"] = pipe["launches"][row["name"]]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,7 +7,8 @@ of their collectives. The port runs eagerly, a gang of processes each
 running its own Python, so the collectives are *recorded* instead:
 :func:`record_collectives` patches the public collectives of
 ``common/nodes.py`` (``all_to_all``, ``psum``, ``psum_scatter``,
-``all_gather``, ``all_gather_unstride``, ``global_count``) as
+``all_gather``, ``all_gather_unstride``, ``global_count``, and the
+pipeline's ``ppermute`` and ``broadcast``) as
 ``record_pallas_calls`` patches ``pl.pallas_call``, and marks each round
 and each exchange of the mapreduce backend. Each record holds the op, the
 dtype, the shape, the bytes, the group's world and rank, and whether the
@@ -78,7 +79,8 @@ GANG_RANKS = 2
 GANG_TIMEOUT_S = 180.0
 
 PUBLIC_COLLECTIVES = ("all_to_all", "psum", "psum_scatter", "all_gather",
-                      "all_gather_unstride", "global_count")
+                      "all_gather_unstride", "global_count", "ppermute",
+                      "broadcast")
 
 
 @dataclasses.dataclass

@@ -19,7 +19,11 @@ tensor op over the local axis, and in a gang also a gloo collective:
   which a process keeps its own, and ``all_gather`` of contiguous blocks a
   gather plus a reshape;
 - ``all_gather`` of the strided owned blocks plus the unstride of
-  ``runner.py:174-176`` is a gather, a permute and a reshape.
+  ``runner.py:174-176`` is a gather, a permute and a reshape;
+- ``ppermute`` (JAX's ``lax.ppermute``: node ``dst`` receives node
+  ``src``'s row for each pair, every other node zeros) copies rows within
+  a process and sends the rest point to point;
+- ``broadcast`` hands every process one node's tensor.
 
 Gloo's support for CUDA tensors differs between collectives and builds, so
 a gang stages every collective through the host explicitly: a copy into
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -290,3 +294,81 @@ def global_count(x: torch.Tensor, group: Optional[NodeGroup] = None) -> int:
     t = torch.tensor([total], dtype=torch.int64)
     _gloo(lambda: dist.all_reduce(t), group, wire_bytes(t))
     return int(t[0])
+
+
+def ring(nodes: int) -> list:
+    """JAX's ring permutation over ``nodes`` nodes: ``(i, (i + 1) % n)``."""
+    return [(i, (i + 1) % nodes) for i in range(nodes)]
+
+
+def _check_perm(perm, nodes: int) -> None:
+    srcs = [s for s, _ in perm]
+    dsts = [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute: a node sends or receives twice in "
+                         f"{list(perm)}")
+    if not all(0 <= n < nodes for n in srcs + dsts):
+        raise ValueError(f"ppermute: {list(perm)} names a node outside "
+                         f"[0, {nodes})")
+
+
+def ppermute(x: torch.Tensor, perm: Optional[Sequence[tuple]] = None,
+             group: Optional[NodeGroup] = None) -> torch.Tensor:
+    """``[P_local, ...]`` -> ``[P_local, ...]``: for each ``(src, dst)`` of
+    ``perm`` (global node indices, JAX's ring ``(i, (i+1) % P)`` if None)
+    node ``dst``'s row is node ``src``'s; a node no pair sends to gets
+    zeros, as under ``lax.ppermute``. Every process must pass the same
+    ``perm``. In a gang a pair within a process is a copy; a pair across
+    processes is a gloo send and receive of the row, staged through the
+    host, and the clock counts the bytes this process sends."""
+    group = group_of_rows(group, x.shape[0])
+    perm = ring(group.nodes) if perm is None else [tuple(p) for p in perm]
+    _check_perm(perm, group.nodes)
+    mine = range(group.first, group.first + group.local)
+    out = torch.zeros_like(x)
+    sends, recvs = [], []
+    for src, dst in perm:
+        if src in mine and dst in mine:
+            out[dst - group.first] = x[src - group.first]
+        elif src in mine:
+            sends.append((src, dst))
+        elif dst in mine:
+            recvs.append((src, dst))
+    if not (sends or recvs):
+        return out
+    host_out = [(dst, _to_host(x[src - group.first], group.clock))
+                for src, dst in sends]
+    host_in = [(src, dst, torch.empty(x.shape[1:], dtype=x.dtype,
+                                      pin_memory=x.device.type == "cuda"))
+               for src, dst in recvs]
+
+    def exchange():
+        # a message is tagged with its destination node; a node's rank is
+        # node // local
+        works = [dist.isend(t, dst=dst // group.local, tag=dst)
+                 for dst, t in host_out]
+        works += [dist.irecv(t, src=src // group.local, tag=dst)
+                  for src, dst, t in host_in]
+        for w in works:
+            w.wait()
+
+    _gloo(exchange, group, sum(wire_bytes(t) for _, t in host_out))
+    for _, dst, t in host_in:
+        out[dst - group.first] = _to_device(t, x.device, group.clock)
+    return out
+
+
+def broadcast(x: torch.Tensor, node: int,
+              group: Optional[NodeGroup] = None) -> torch.Tensor:
+    """The ``x`` of the process that holds node ``node``, on every
+    process (each passes a tensor of the same shape and dtype). With one
+    process, ``x`` itself."""
+    if group is None or not group.distributed:
+        return x
+    if not 0 <= node < group.nodes:
+        raise ValueError(f"broadcast: node {node} outside "
+                         f"[0, {group.nodes})")
+    host = _to_host(x, group.clock)
+    src = node // group.local
+    _gloo(lambda: dist.broadcast(host, src=src), group, wire_bytes(host))
+    return _to_device(host, x.device, group.clock)

@@ -7,20 +7,57 @@ process's devices; here a :class:`~repro_torch.common.nodes.NodeGroup`
 says which contiguous block of the P nodes this process holds, and the
 collectives of ``repro_torch.common.nodes`` join the blocks.
 ``shard_log_to_mesh``'s counterpart is ``NodeGroup.rows``: the drivers
-take the global log and keep the group's rows (``runner._node_log``). ``make_production_mesh``,
-``batch_axes`` and ``make_host_mesh`` serve the language-model substrate's
-pipeline parallelism and have no counterpart yet (ROADMAP.md Queue 1
-item 9e).
+take the global log and keep the group's rows (``runner._node_log``).
+
+``make_production_mesh``, ``batch_axes`` and ``make_host_mesh`` serve the
+dry run (``launch/dryrun.py``) and the pipeline
+(``distributed/pipeline.py``). A mesh there is its axis shape, the
+``MeshShape`` dict of ``models/sharding.py`` (axis name to size, in JAX's
+axis order): the dry run touches no device, and the pipeline's stages
+are a ``NodeGroup``'s nodes.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.common.nodes import NodeGroup
+from repro_torch.models.sharding import MeshShape
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """Single-pod: (16, 16) = (data, model), 256 chips.
+    Multi-pod:  (2, 16, 16) = (pod, data, model), 512 chips."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def batch_axes(mesh: MeshShape) -> tuple:
+    """Mesh axes the global batch shards over."""
+    return tuple(a for a in ("pod", "data") if a in mesh)
+
+
+def make_host_mesh(n: int = 8, axes=("data",), shape=None) -> MeshShape:
+    """A small mesh of ``n`` nodes for functional multi-node tests.
+
+    Multi-axis meshes need an explicit ``shape`` whose product is ``n``."""
+    if shape is None:
+        if len(axes) != 1:
+            raise ValueError(
+                f"make_host_mesh needs an explicit shape= for multi-axis"
+                f" axes {tuple(axes)!r} (whose product must be n={n})")
+        shape = (n,)
+    shape = tuple(shape)
+    if math.prod(shape) != n:
+        raise ValueError(
+            f"mesh shape {shape} places {math.prod(shape)} devices,"
+            f" not n={n}")
+    return dict(zip(axes, shape))
 
 
 def global_nodes(num_nodes: int) -> NodeGroup:

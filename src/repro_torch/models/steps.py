@@ -169,14 +169,16 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+def input_specs(cfg: ModelConfig, shape_name) -> dict:
     """Stand-ins for every input of (arch x shape): no allocation.
+    ``shape_name`` names one of ``SHAPES`` or is an ``InputShape``.
 
     train:   {tokens, labels (+patches/frames)}
     prefill: {tokens (+patches/frames)}
     decode:  {token, cache, (enc_out)} — cache sized to seq_len.
     """
-    sh = SHAPES[shape_name]
+    sh = (shape_name if isinstance(shape_name, InputShape)
+          else SHAPES[shape_name])
     b = sh.global_batch
     if sh.kind in ("train", "prefill"):
         spec = {"tokens": _meta((b, sh.seq_len), torch.int32)}

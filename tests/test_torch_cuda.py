@@ -1665,3 +1665,82 @@ def test_decode_writes_the_cache_in_place_on_card(cuda_device):
     assert [x.data_ptr() for x in tr.tree_leaves(cache)] == ptrs
     assert int(cache[0]["kind_attn"].length[0]) == 16 + 8
     assert peak < cache_bytes / 2, (peak, cache_bytes)
+
+
+# ------------------------------------------------- pipeline parallelism
+def _pipeline_tool():
+    import pathlib
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root / "tools"))
+    import pipeline_gang
+
+    return root, pipeline_gang
+
+
+@pytest.mark.cuda
+def test_pipeline_bit_equals_the_blocks_on_card(cuda_device):
+    """llama3-8b's blocks at full width and bf16, 2 layers in 2 stages, 4
+    microbatches of [1, 256, 4096]: the pipeline's output bit-equals the
+    blocks applied to each microbatch in turn, and no K1-K7 launches."""
+    from repro_torch.distributed import PipelineConfig, pipeline_apply
+
+    _, pg = _pipeline_tool()
+    cfg = pg.model_cfg("llama3_8b", layers=2)
+    params = pg.stage_blocks(cfg, range(2), 1, cuda_device)
+    x = pg.hidden_states(cfg, 4, 256, cuda_device)
+    fn = pg.blocks_fn(cfg, 1)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = pipeline_apply(fn, params, x, PipelineConfig(2, 4))
+        want = torch.cat([pg.sequential(fn, params, x[k:k + 1], 2)
+                          for k in range(4)])
+    assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert not any(launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_ring_collective_of_a_cuda_tensor_through_the_host(cuda_device,
+                                                           tmp_path):
+    """tools/pipeline_gang.py as a gang of 2 ranks sharing the card: the
+    ring ``ppermute`` and a partial one of CUDA rows (staged through
+    pinned host memory) equal the one-process op, and the pipeline's
+    output on both ranks equals the one-process pipeline on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.common import nodes
+    from repro_torch.distributed import PipelineConfig, pipeline_apply
+    from repro_torch.launch import mesh
+
+    root, pg = _pipeline_tool()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, str(root / "tools" / "pipeline_gang.py"),
+         "--num-processes", "2", "--arch", "llama3_8b", "--smoke",
+         "--layers", "4", "--stages", "4", "--microbatches", "4",
+         "--batch", "4", "--seq", "32", "--runs", "1", "--collectives",
+         "--device", "cuda", "--out", str(tmp_path), "--timeout", "240"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    rows = pg.collective_input(4).to(cuda_device)
+    ring = nodes.ppermute(rows).cpu()
+    partial = nodes.ppermute(rows, pg.partial_perm(4)).cpu()
+    cfg = pg.model_cfg("llama3_8b", smoke=True, layers=4)
+    params = pg.stage_blocks(cfg, range(4), 1, cuda_device)
+    with torch.no_grad():
+        out = pipeline_apply(pg.blocks_fn(cfg, 1), params,
+                             pg.hidden_states(cfg, 4, 32, cuda_device),
+                             PipelineConfig(4, 4))
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["ppermute_ring"] == ring[2 * r:2 * r + 2].tolist()
+        assert res["ppermute_partial"] == partial[2 * r:2 * r + 2].tolist()
+        assert res["digest"] == mesh.checksum([out])
+        assert res["clock"]["d2h_ms"] > 0 and res["clock"]["bytes"] > 0
