@@ -30,8 +30,11 @@ a gang stages every collective through the host explicitly: a copy into
 pinned memory, the gloo call on CPU tensors, and the copy back. The
 group's :class:`ExchangeClock` adds up each part's host-clock time and the
 bytes handed to gloo, each element at its dtype's width in
-:data:`WIRE_BYTES`. With one process none of this runs: every function is
-exactly the tensor op it was.
+:data:`WIRE_BYTES`; the same clock reads are the recorder's spans
+(``repro_torch.common.trace``) of the parts: the wait
+(``host.sync.collective.wait``), ``collective.d2h``, ``collective.gloo``
+and ``collective.h2d``. With one process none of this runs: every
+function is exactly the tensor op it was.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.common import trace
 
 
 # Bytes of one element handed to gloo, by dtype: the table ExchangeClock's
@@ -172,14 +177,14 @@ def _to_host(x: torch.Tensor, clock: ExchangeClock) -> torch.Tensor:
     if x.device.type != "cuda":
         return x.contiguous()
     stream = torch.cuda.current_stream(x.device)
-    t0 = time.perf_counter()
-    stream.synchronize()
-    t1 = time.perf_counter()
+    t0, t1 = trace.host_wait(stream, "collective.wait")
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     host.copy_(x, non_blocking=True)
     stream.synchronize()
-    clock.wait_ms += (t1 - t0) * 1e3
-    clock.d2h_ms += (time.perf_counter() - t1) * 1e3
+    t2 = time.time_ns()
+    trace.record("collective.d2h", t1, t2)
+    clock.wait_ms += (t1 - t0) / 1e6
+    clock.d2h_ms += (t2 - t1) / 1e6
     return host
 
 
@@ -187,17 +192,21 @@ def _to_device(host: torch.Tensor, device: torch.device,
                clock: ExchangeClock) -> torch.Tensor:
     if device.type != "cuda":
         return host
-    t0 = time.perf_counter()
+    t0 = time.time_ns()
     out = host.to(device, non_blocking=True)
     torch.cuda.current_stream(device).synchronize()
-    clock.h2d_ms += (time.perf_counter() - t0) * 1e3
+    t1 = time.time_ns()
+    trace.record("collective.h2d", t0, t1)
+    clock.h2d_ms += (t1 - t0) / 1e6
     return out
 
 
 def _gloo(call, group: NodeGroup, nbytes: int) -> None:
-    t0 = time.perf_counter()
+    t0 = time.time_ns()
     call()
-    group.clock.gloo_ms += (time.perf_counter() - t0) * 1e3
+    t1 = time.time_ns()
+    trace.record("collective.gloo", t0, t1)
+    group.clock.gloo_ms += (t1 - t0) / 1e6
     group.clock.bytes += nbytes
     group.clock.calls += 1
 
@@ -288,7 +297,7 @@ def all_gather_unstride(owned: torch.Tensor,
 def global_count(x: torch.Tensor, group: Optional[NodeGroup] = None) -> int:
     """``int(x.sum())`` over every process's ``x``: the count a loop over
     all nodes tests, the same on every process of a gang."""
-    total = int(x.sum(dtype=torch.int64))
+    total = trace.host_read(x.sum(dtype=torch.int64), "global_count")
     if group is None or not group.distributed:
         return total
     t = torch.tensor([total], dtype=torch.int64)

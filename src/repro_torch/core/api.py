@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.common import trace
 from repro_torch.common.nodes import NodeGroup
 from repro_torch.common.types import EventLog, ExchangePlan
 
@@ -50,8 +51,16 @@ def run(source, num_sites: Optional[int] = None, *, nodes: int,
     ``malstone_run_partitioned``. Other keyword arguments (``statistic``,
     ``backend``, ``return_shuffle_stats``, ...) pass through. Runs on the
     card unless ``device="cpu"``; ``group`` picks the nodes this process
-    runs (default: all ``nodes``).
+    runs (default: all ``nodes``). A call is one ``run.job`` span.
     """
+    with trace.span("run.job", req=trace.seq("run.job")):
+        return _route(source, num_sites, nodes=nodes, engine=engine,
+                      plan=plan, cfg=cfg, partitioned=partitioned,
+                      device=device, group=group, **kwargs)
+
+
+def _route(source, num_sites, *, nodes, engine, plan, cfg, partitioned,
+           device, group, **kwargs):
     from repro_torch.core import resume, runner
 
     if engine not in ENGINES:

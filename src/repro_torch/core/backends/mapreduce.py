@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.common import nodes
+from repro_torch.common import nodes, trace
 from repro_torch.common.types import (
     EXCHANGE_IMPLS,
     EventLog,
@@ -146,15 +146,18 @@ def order_words(log: EventLog, num_weeks: int, impl: str,
     """Mapper side of every node of a ``[P_local, n]`` log: project each
     record to its word (invalid rows -> the zero word, bound for the
     pseudo-destination P) and order the words by destination ``site % P``,
-    once. Returns ``(words_sorted [P_local, n], starts [P_local, P+1])``."""
+    once. Returns ``(words_sorted [P_local, n], starts [P_local, P+1])``.
+    One ``shuffle.order`` span."""
     p = nodes.group_of_rows(group, log.site_id.shape[0]).nodes
-    valid = log.valid_mask()
-    dest = torch.where(valid, log.site_id % p,
-                       torch.full_like(log.site_id, p)).to(torch.int32)
-    words = pack_site_week_mark(log.site_id, log.week(num_weeks=num_weeks),
-                                log.mark, valid)
-    order = _sort_words if impl == "sort" else _counting_words
-    return order(words.contiguous(), dest.contiguous(), p)
+    with trace.span("shuffle.order"):
+        valid = log.valid_mask()
+        dest = torch.where(valid, log.site_id % p,
+                           torch.full_like(log.site_id, p)).to(torch.int32)
+        words = pack_site_week_mark(log.site_id,
+                                    log.week(num_weeks=num_weeks), log.mark,
+                                    valid)
+        order = _sort_words if impl == "sort" else _counting_words
+        return order(words.contiguous(), dest.contiguous(), p)
 
 
 def _bytes_exchanged(rounds: int, parts: int, capacity: int,
@@ -201,8 +204,9 @@ def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
     """The round loop (JAX ``_word_shuffle_histogram`` body): round r
     ships window ``[r*C, (r+1)*C)`` of every destination segment of every
     node, the receivers reduce the words, and the loop stops when no
-    record is left anywhere or ``max_rounds`` ran. Returns the owned
-    ``[P_local, S/P, W, 2]`` histograms and per-node ``ShuffleStats``."""
+    record is left anywhere or ``max_rounds`` ran, each round a
+    ``shuffle.round`` span (``req`` r). Returns the owned ``[P_local, S/P,
+    W, 2]`` histograms and per-node ``ShuffleStats``."""
     rows = words_sorted.shape[0]
     group = nodes.group_of_rows(group, rows)
     p = group.nodes
@@ -230,14 +234,15 @@ def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
     global_left = nodes.global_count(starts[:, p], group)   # valid records
     rounds = 0
     while global_left > 0 and rounds < max_rounds:
-        shipped, live = ship_round(words_sorted, starts, rounds, capacity,
-                                   group)
-        left = (counts - (rounds + 1) * capacity).clamp(min=0).sum(
-            dim=-1, dtype=torch.int32)
-        hist += reduce_words(shipped)
-        sent += live.sum(dim=(1, 2), dtype=torch.int32)
-        deferred += left
-        global_left = nodes.global_count(left, group)
+        with trace.span("shuffle.round", req=rounds):
+            shipped, live = ship_round(words_sorted, starts, rounds,
+                                       capacity, group)
+            left = (counts - (rounds + 1) * capacity).clamp(min=0).sum(
+                dim=-1, dtype=torch.int32)
+            hist += reduce_words(shipped)
+            sent += live.sum(dim=(1, 2), dtype=torch.int32)
+            deferred += left
+            global_left = nodes.global_count(left, group)
         rounds += 1
 
     overflow = (counts - rounds * capacity).clamp(min=0).sum(

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.common import nodes as nodes_lib
+from repro_torch.common import trace
 from repro_torch.common.types import (
     EventLog,
     ExchangePlan,
@@ -68,7 +69,7 @@ def _raise_if_exhausted(stats: Optional[ShuffleStats]) -> None:
     undelivered: that is an error, never a silent drop."""
     if stats is None:
         return
-    undelivered = int(stats.overflow)
+    undelivered = trace.host_read(stats.overflow, "overflow")
     if undelivered > 0:
         raise ShuffleExhaustedError(
             f"mapreduce shuffle stopped after {stats.rounds} rounds with "
@@ -83,12 +84,13 @@ def _pad_sites(num_sites: int, parts: int) -> int:
 
 
 def _finalize(hist: torch.Tensor, statistic: str) -> SpmResult:
-    if statistic == "A":
-        return spm_lib.malstone_a(hist)
-    if statistic == "B":
-        return spm_lib.malstone_b(hist)
-    if statistic == "B-fixed":
-        return spm_lib.malstone_b_fixed_denominator(hist)
+    with trace.span("run.finalize"):
+        if statistic == "A":
+            return spm_lib.malstone_a(hist)
+        if statistic == "B":
+            return spm_lib.malstone_b(hist)
+        if statistic == "B-fixed":
+            return spm_lib.malstone_b_fixed_denominator(hist)
     raise ValueError(f"unknown statistic {statistic!r}")
 
 

@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.common import nodes as nodes_lib
+from repro_torch.common import trace
 from repro_torch.common.types import EventLog, ExchangePlan, WEEKS_PER_YEAR
 from repro_torch.core.backends import (
     ShuffleStats,
@@ -117,24 +118,27 @@ def _accumulate_chunk(carry, chunk: EventLog, backend: str, s_pad: int,
                       num_weeks: int, plan: ExchangePlan,
                       group: Optional[nodes_lib.NodeGroup] = None):
     """Fold one ``[P_local, C]`` chunk into the carry with the backend's
-    dataflow (in place)."""
+    dataflow (in place): one ``stream.fold`` span."""
     hist_fn, word_fn = resolve_histogram_fns(plan)
-    if backend in ("streams", "sphere"):
-        carry += hist_fn(chunk, s_pad, num_weeks)
-        return carry
-    if backend == "mapreduce":
-        owned, stats = carry
-        inc, chunk_stats = mapreduce_histogram(
-            chunk, s_pad, num_weeks, capacity_factor=plan.capacity_factor,
-            max_rounds=plan.max_shuffle_rounds, impl=plan.impl,
-            histogram_fn=hist_fn, word_histogram_fn=word_fn, group=group)
-        owned += inc
-        return (owned, merge_stats(stats, chunk_stats))
-    if backend == "mapreduce_combiner":
-        carry += mapreduce_combiner_histogram(chunk, s_pad, num_weeks,
-                                              histogram_fn=hist_fn,
-                                              group=group)
-        return carry
+    with trace.span("stream.fold"):
+        if backend in ("streams", "sphere"):
+            carry += hist_fn(chunk, s_pad, num_weeks)
+            return carry
+        if backend == "mapreduce":
+            owned, stats = carry
+            inc, chunk_stats = mapreduce_histogram(
+                chunk, s_pad, num_weeks,
+                capacity_factor=plan.capacity_factor,
+                max_rounds=plan.max_shuffle_rounds, impl=plan.impl,
+                histogram_fn=hist_fn, word_histogram_fn=word_fn,
+                group=group)
+            owned += inc
+            return (owned, merge_stats(stats, chunk_stats))
+        if backend == "mapreduce_combiner":
+            carry += mapreduce_combiner_histogram(chunk, s_pad, num_weeks,
+                                                  histogram_fn=hist_fn,
+                                                  group=group)
+            return carry
     raise ValueError(f"unknown streaming backend {backend!r}")
 
 
@@ -146,16 +150,18 @@ def scan_chunk_range(carry, seed, cfg, first_chunks: Sequence[int],
                      group: Optional[nodes_lib.NodeGroup] = None):
     """Regenerate and fold ``num_chunks`` steps: step i generates chunk
     ``first_chunks[r] + i`` (global chunk ids) for every local node r
-    (``generate_chunks``) and folds it. Any split of a chunk range into
-    consecutive calls gives the same carry."""
+    (``generate_chunks``) and folds it, a ``stream.step`` span (``req``
+    i). Any split of a chunk range into consecutive calls gives the same
+    carry."""
     from repro_torch.malgen.generator import generate_chunks
 
     plan = plan or ExchangePlan()
     for i in range(num_chunks):
-        chunk = generate_chunks(seed, cfg, [f + i for f in first_chunks],
-                                chunk_records)
-        carry = _accumulate_chunk(carry, chunk, backend, s_pad, num_weeks,
-                                  plan, group)
+        with trace.span("stream.step", req=i):
+            chunk = generate_chunks(seed, cfg, [f + i for f in first_chunks],
+                                    chunk_records)
+            carry = _accumulate_chunk(carry, chunk, backend, s_pad,
+                                      num_weeks, plan, group)
     return carry
 
 
@@ -163,27 +169,28 @@ def post_scan_collective(carry, backend: str, s_pad: int, num_weeks: int,
                          group: Optional[nodes_lib.NodeGroup] = None):
     """The carry -> (the full-site ``[s_pad, W, 2]`` histogram, the global
     ShuffleStats for mapreduce, else ``None``); does not change the
-    carry."""
-    if backend == "streams":
-        return nodes_lib.psum(carry, group=group), None
-    if backend == "sphere":
-        return nodes_lib.all_gather(nodes_lib.psum_scatter(carry, group),
-                                    group), None
-    stats = None
-    if backend == "mapreduce":
-        carry, per_node = carry
-        # capacity and rounds are the same on every node (the round loop's
-        # stop test is global)
-        stats = ShuffleStats(
-            sent=nodes_lib.psum(per_node.sent, group=group),
-            overflow=nodes_lib.psum(per_node.overflow, group=group),
-            capacity=int(per_node.capacity[0]),
-            rounds=int(per_node.rounds[0]),
-            residual=nodes_lib.psum(per_node.residual, group=group),
-            bytes_exchanged=nodes_lib.psum(per_node.bytes_exchanged,
-                                           group=group))
-    # owned rows are strided (site = row * P + d): gather + unstride
-    return nodes_lib.all_gather_unstride(carry, group), stats
+    carry. One ``stream.collective`` span."""
+    with trace.span("stream.collective"):
+        if backend == "streams":
+            return nodes_lib.psum(carry, group=group), None
+        if backend == "sphere":
+            return nodes_lib.all_gather(
+                nodes_lib.psum_scatter(carry, group), group), None
+        stats = None
+        if backend == "mapreduce":
+            carry, per_node = carry
+            # capacity and rounds are the same on every node (the round
+            # loop's stop test is global)
+            stats = ShuffleStats(
+                sent=nodes_lib.psum(per_node.sent, group=group),
+                overflow=nodes_lib.psum(per_node.overflow, group=group),
+                capacity=trace.host_read(per_node.capacity[0], "capacity"),
+                rounds=trace.host_read(per_node.rounds[0], "rounds"),
+                residual=nodes_lib.psum(per_node.residual, group=group),
+                bytes_exchanged=nodes_lib.psum(per_node.bytes_exchanged,
+                                               group=group))
+        # owned rows are strided (site = row * P + d): gather + unstride
+        return nodes_lib.all_gather_unstride(carry, group), stats
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +227,9 @@ def fold_chunk(state: HistogramState, chunk: EventLog, *, backend: str,
     local node r's) into the state: the streaming engine's step, so the
     mapreduce shuffle and its stats are exactly the engine's."""
     _check_backend(backend)
-    carry = _accumulate_chunk(state.carry, chunk, backend, s_pad, num_weeks,
-                              plan or ExchangePlan(), group)
+    with trace.span("stream.step", req=0):
+        carry = _accumulate_chunk(state.carry, chunk, backend, s_pad,
+                                  num_weeks, plan or ExchangePlan(), group)
     return HistogramState(carry, state.chunks_folded + 1)
 
 
@@ -295,8 +303,9 @@ def streaming_histogram_generate(seed, cfg, s_pad: int, *, parts: int,
     one-shot run over that log. Returns ``(histogram, ShuffleStats or
     None)``."""
     group = nodes_lib.group_of(group, parts)
-    carry = carry_init(backend, parts, s_pad, num_weeks,
-                       seed.entity_mark_time.device, group)
+    with trace.span("run.setup"):
+        carry = carry_init(backend, parts, s_pad, num_weeks,
+                           seed.entity_mark_time.device, group)
     carry = scan_chunk_range(
         carry, seed, cfg,
         [d * chunks_per_node

@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.nodes import resolve_device
 from repro_torch.common.types import EventLog
 from repro_torch.malgen.powerlaw import sample_sites
@@ -185,31 +186,38 @@ def generate_chunk(seed: SeedInfo, cfg: MalGenConfig, chunk_id: int,
     """One chunk of ``records_per_chunk`` records on the device of the
     seed's tables. ``seed`` comes from ``make_seed_streaming`` at the same
     ``records_per_chunk``. ``marked`` and ``unmarked`` replace the chunk's
-    generators' draws."""
+    generators' draws. Three spans: ``malgen.draw`` (the uniform draws),
+    ``malgen.sample`` (the sites, K6 on the card) and ``malgen.assemble``
+    (the columns joined, the mark looked up)."""
     c = records_per_chunk
     n_marked = chunk_marked_records(cfg, c)
     device = seed.entity_mark_time.device
-    if marked is None:
-        marked = draw_events(seed.rng_seed, "chunk_marked", chunk_id,
-                             n_marked, cfg, device)
-    if unmarked is None:
-        unmarked = draw_events(seed.rng_seed, "chunk_unmarked", chunk_id,
-                               c - n_marked, cfg, device)
+    with trace.span("malgen.draw"):
+        if marked is None:
+            marked = draw_events(seed.rng_seed, "chunk_marked", chunk_id,
+                                 n_marked, cfg, device)
+        if unmarked is None:
+            unmarked = draw_events(seed.rng_seed, "chunk_unmarked", chunk_id,
+                                   c - n_marked, cfg, device)
     if (marked.u_site.numel() != n_marked
             or unmarked.u_site.numel() != c - n_marked):
         raise ValueError(f"chunk {chunk_id}: draws of {marked.u_site.numel()}"
                          f" + {unmarked.u_site.numel()} rows for {n_marked} "
                          f"marked + {c - n_marked} unmarked")
-    site = torch.cat([sample_sites(seed.marked_cdf, marked.u_site),
-                      sample_sites(seed.unmarked_cdf, unmarked.u_site)])
-    entity = torch.cat([marked.entity.to(device), unmarked.entity.to(device)])
-    ts = torch.cat([marked.timestamp.to(device),
-                    unmarked.timestamp.to(device)])
-    mark = (seed.entity_mark_time[entity.to(torch.int64)] <= ts).to(
-        torch.int32)
-    shard_hash = torch.full((c,), int(chunk_shard_hash(chunk_id)),
-                            dtype=torch.int32, device=device)
-    event_seq = torch.arange(c, dtype=torch.int32, device=device)
+    with trace.span("malgen.sample"):
+        sites = [sample_sites(seed.marked_cdf, marked.u_site),
+                 sample_sites(seed.unmarked_cdf, unmarked.u_site)]
+    with trace.span("malgen.assemble"):
+        site = torch.cat(sites)
+        entity = torch.cat([marked.entity.to(device),
+                            unmarked.entity.to(device)])
+        ts = torch.cat([marked.timestamp.to(device),
+                        unmarked.timestamp.to(device)])
+        mark = (seed.entity_mark_time[entity.to(torch.int64)] <= ts).to(
+            torch.int32)
+        shard_hash = torch.full((c,), int(chunk_shard_hash(chunk_id)),
+                                dtype=torch.int32, device=device)
+        event_seq = torch.arange(c, dtype=torch.int32, device=device)
     return EventLog(site_id=site, entity_id=entity, timestamp=ts, mark=mark,
                     event_seq=event_seq, shard_hash=shard_hash)
 
@@ -223,9 +231,13 @@ def generate_chunks(seed: SeedInfo, cfg: MalGenConfig,
                     chunk_ids: Sequence[int],
                     records_per_chunk: int) -> EventLog:
     """The chunks ``chunk_ids`` as ``[len(chunk_ids), records_per_chunk]``
-    columns: row d is node d's chunk of one streaming step."""
-    return _stack_logs([generate_chunk(seed, cfg, c, records_per_chunk)
-                        for c in chunk_ids], torch.stack)
+    columns: row d is node d's chunk of one streaming step. One
+    ``malgen.generate`` span."""
+    with trace.span("malgen.generate"):
+        chunks = [generate_chunk(seed, cfg, c, records_per_chunk)
+                  for c in chunk_ids]
+        with trace.span("malgen.assemble"):
+            return _stack_logs(chunks, torch.stack)
 
 
 def generate_chunked_log(seed: SeedInfo, cfg: MalGenConfig, num_chunks: int,

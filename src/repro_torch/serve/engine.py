@@ -22,15 +22,16 @@ Two ingest sources, as in ``malstone_run_streaming``:
   every node from the streaming seed (node d folds chunks ``[d * cpn +
   done, d * cpn + done + k)``), so no records cross the host.
 
-``submit`` encodes a batch, launches its work on the current stream and
-returns a ticket at once; ``wait`` copies the answers to the host, which
-is where the host waits for the device. The P nodes are the leading axis
-of the state on one device: the constructor takes ``nodes=`` where the
-JAX service takes a mesh. ``ingest_program(k)`` and ``snapshot_program()``
-are the counterparts of the JAX service's jitted programs: plain ``state
--> state`` (and ``state -> (histogram, stats)``) callables that the
-service itself runs and that ``repro_torch.analysis``'s driver passes run
-on a state of their own.
+``submit`` encodes a batch, launches its work on the current stream,
+records an event behind it (on the card) and returns a ticket at once;
+``wait`` waits for that event, then copies the answers to the host, so the
+wait for the device and the copy are two parts. The P nodes are the
+leading axis of the state on one device: the constructor takes ``nodes=``
+where the JAX service takes a mesh. ``ingest_program(k)`` and
+``snapshot_program()`` are the counterparts of the JAX service's jitted
+programs: plain ``state -> state`` (and ``state -> (histogram, stats)``)
+callables that the service itself runs and that ``repro_torch.analysis``'s
+driver passes run on a state of their own.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Iterator, Optional, Sequence
 import torch
 
 from repro_torch.common import nodes as nodes_lib
+from repro_torch.common import trace
 from repro_torch.common.types import EventLog, ExchangePlan, WEEKS_PER_YEAR
 from repro_torch.core.runner import (
     _finalize,
@@ -60,9 +62,10 @@ from repro_torch.core.streaming import (
 from repro_torch.serve.queries import (
     QueryBatch,
     QuerySpec,
+    answers_to_host,
     batched_query,
-    decode_answers,
     encode_query_batch,
+    split_answers,
 )
 
 
@@ -100,6 +103,7 @@ class ServiceStats:
 class _PendingBatch:
     batch: QueryBatch
     outputs: tuple                # device tensors, work in flight
+    done: Optional[torch.cuda.Event] = None   # recorded behind the work
 
 
 class MalStoneService:
@@ -187,9 +191,10 @@ class MalStoneService:
                 f"service folds {expected} records per ingest ({self.parts} "
                 f"nodes x {self.chunk_records}); use ingest_slices / "
                 f"ingest_log to cut a full log")
-        chunk = chunk._replace(valid=chunk.valid_mask()).map(
-            lambda c: c.to(self.device).reshape(self.parts, -1))
-        self._state = fold_chunk(self._state, chunk, **self._fold_kw)
+        with trace.span("serve.ingest", req=trace.seq("serve.ingest")):
+            chunk = chunk._replace(valid=chunk.valid_mask()).map(
+                lambda c: c.to(self.device).reshape(self.parts, -1))
+            self._state = fold_chunk(self._state, chunk, **self._fold_kw)
         self._records_ingested += expected
         self._ingest_calls += 1
         self._dirty = True
@@ -206,22 +211,28 @@ class MalStoneService:
         """Seed mode: regenerate and fold the next ``k`` chunks of every
         node (node d folds chunks ``[d * cpn + done, + k)``), so any
         schedule covering all ``cpn`` chunks equals the one-shot streaming
-        run."""
-        self._state = self.ingest_program(k)(self._state)
+        run. One ``serve.ingest`` span."""
+        with trace.span("serve.ingest", req=trace.seq("serve.ingest")):
+            self._state = self.ingest_program(k)(self._state)
         self._records_ingested += k * self.parts * self.chunk_records
         self._ingest_calls += 1
         self._dirty = True
 
     # -------------------------------------------------------- snapshot
     def _refresh(self) -> torch.Tensor:
-        """The resident snapshot, re-made if an ingest landed since the
-        last one; queries read this cached device histogram."""
+        """The resident snapshot, re-made (a ``serve.snapshot`` span) if an
+        ingest landed since the last one; queries read this cached device
+        histogram."""
         if self._dirty or self._hist is None:
-            hist, stats = self.snapshot_program()(self._state)
-            _raise_if_exhausted(stats)
-            self._last_shuffle_stats = stats
-            self._hist = hist[:self.num_sites].contiguous()
-            self._dirty = False
+            with trace.span("serve.snapshot"):
+                hist, stats = self.snapshot_program()(self._state)
+                _raise_if_exhausted(stats)
+                self._last_shuffle_stats = stats
+                self._hist = hist[:self.num_sites].contiguous()
+                self._dirty = False
+            trace.count("serve.snapshot_rebuilds")
+        else:
+            trace.count("serve.snapshot_hits")
         return self._hist
 
     def snapshot(self):
@@ -238,30 +249,52 @@ class MalStoneService:
     # --------------------------------------------------------- queries
     def submit(self, specs: Sequence[QuerySpec]) -> int:
         """Encode a query batch and launch its work; returns a ticket at
-        once (the device works on while the host goes on)."""
-        batch = encode_query_batch(specs, self.num_weeks, self.num_sites)
-        hist = self._refresh()
-
-        def dev(x):
-            return torch.from_numpy(x).to(self.device)
-
-        outputs = batched_query(hist, dev(batch.num_masks),
-                                dev(batch.den_masks), dev(batch.sites),
-                                max_top_k=batch.max_top_k)
+        once (the device works on while the host goes on). One
+        ``serve.submit`` span (``req`` the ticket)."""
         ticket = self._next_ticket
+        with trace.span("serve.submit", req=ticket):
+            with trace.span("query.encode", req=ticket):
+                batch = encode_query_batch(specs, self.num_weeks,
+                                           self.num_sites)
+            hist = self._refresh()
+
+            def dev(x):
+                return torch.from_numpy(x).to(self.device)
+
+            with trace.span("query.launch", req=ticket):
+                # pageable uploads: the first waits for the stream's queue
+                with trace.span("query.upload", req=ticket):
+                    masks = (dev(batch.num_masks), dev(batch.den_masks),
+                             dev(batch.sites))
+                outputs = batched_query(hist, *masks,
+                                        max_top_k=batch.max_top_k)
+                done = None
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
         self._next_ticket += 1
-        self._pending[ticket] = _PendingBatch(batch=batch, outputs=outputs)
+        self._pending[ticket] = _PendingBatch(batch=batch, outputs=outputs,
+                                              done=done)
         self._batches_submitted += 1
         self._queries_submitted += len(batch.specs)
         return ticket
 
     def wait(self, ticket: int) -> list:
-        """The decoded ``QueryAnswer`` list of one ticket (waits for its
-        device work)."""
+        """The decoded ``QueryAnswer`` list of one ticket: waits for its
+        device work (``host.sync.query_done``), copies the answers to the
+        host (``query.copy``) and splits them (``query.decode``), in one
+        ``serve.wait`` span (``req`` the ticket)."""
         pending = self._pending.pop(ticket, None)
         if pending is None:
             raise KeyError(f"unknown or already-collected ticket {ticket!r}")
-        answers = decode_answers(pending.batch, pending.outputs)
+        with trace.span("serve.wait", req=ticket):
+            if pending.done is not None:
+                trace.host_wait(pending.done, "query_done")
+            with trace.span("query.copy", req=ticket):
+                host = answers_to_host(pending.outputs)
+            trace.count("query.copy_bytes", sum(a.nbytes for a in host))
+            with trace.span("query.decode", req=ticket):
+                answers = split_answers(pending.batch, host)
         self._batches_answered += 1
         self._queries_answered += len(answers)
         return answers

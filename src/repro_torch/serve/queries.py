@@ -160,11 +160,21 @@ def batched_query(hist: torch.Tensor, num_masks: torch.Tensor,
     return rho, num, den, top_rho, top_sites, site_rows
 
 
+def answers_to_host(outputs) -> tuple:
+    """The batched outputs copied to the host, as numpy arrays (the first
+    copy waits for the device)."""
+    return tuple(x.cpu().numpy() for x in outputs)
+
+
 def decode_answers(batch: QueryBatch, outputs) -> list:
     """Split the batched outputs into per-spec QueryAnswers (copies them
     to the host, which waits for the device)."""
-    rho, num, den, top_rho, top_sites, site_rows = (
-        x.cpu().numpy() for x in outputs)
+    return split_answers(batch, answers_to_host(outputs))
+
+
+def split_answers(batch: QueryBatch, host: tuple) -> list:
+    """Split ``answers_to_host``'s arrays into per-spec QueryAnswers."""
+    rho, num, den, top_rho, top_sites, site_rows = host
     answers = []
     for i, spec in enumerate(batch.specs):
         ans = QueryAnswer(spec=spec, rho=rho[i], num=num[i], den=den[i])
