@@ -2076,6 +2076,69 @@ def k6_timings(device, seed, cfg) -> dict:
     return out
 
 
+def k6_join_timings(device, seed) -> dict:
+    """K6's join pass (``powerlaw_sample_join``) at the streaming step's
+    shapes: one row of 2^23 records, the 838,861 marked from its start
+    under the marked CDF, the 7,549,747 unmarked from 838,861 (one int
+    past a 16-byte boundary) under the unmarked one; each half bit-equal
+    to plain K6 plus the torch join, timed beside them (``unfused_ms``:
+    the same, as the step ran before the pass), the plain version
+    (``torch.searchsorted`` and the gather) and its bound: K6's 8 bytes a
+    record and the CDF, the join's 20 (entity and timestamp read; mark,
+    event id and hash written)."""
+    from repro_torch.kernels.powerlaw_sample import ops as ps
+
+    c, n_m = 1 << 23, 838_861
+    g = torch.Generator(device=device).manual_seed(34)
+    e_count = seed.entity_mark_time.shape[0]
+    u = torch.rand(c, generator=g, device=device)
+    entity = torch.randint(0, e_count, (c,), generator=g, device=device,
+                           dtype=torch.int32)
+    ts = torch.randint(0, 31_536_000, (c,), generator=g, device=device,
+                       dtype=torch.int32)
+    out = [torch.empty(c, dtype=torch.int32, device=device)
+           for _ in range(4)]
+    out_plain = [torch.empty_like(o) for o in out]
+    mt = seed.entity_mark_time
+    rows = {}
+    for key, lo, hi, cdf in (("join_marked", 0, n_m, seed.marked_cdf),
+                             ("join_unmarked", n_m, c, seed.unmarked_cdf)):
+        args = (u[lo:hi], cdf, entity[lo:hi], ts[lo:hi], mt)
+
+        def fused():
+            ps.powerlaw_sample_join(*args, *[x[lo:hi] for x in out],
+                                    seq_start=lo, hash_value=-77)
+
+        def unfused():
+            return (ps.powerlaw_sample(u[lo:hi].contiguous(), cdf),
+                    (mt[entity[lo:hi].long()] <= ts[lo:hi]).int(),
+                    torch.arange(lo, hi, dtype=torch.int32, device=device),
+                    torch.full((hi - lo,), -77, dtype=torch.int32,
+                               device=device))
+
+        def plain():
+            ps.powerlaw_sample_join_plain(
+                *args, *[x[lo:hi] for x in out_plain], seq_start=lo,
+                hash_value=-77)
+
+        fused()
+        plain()
+        want = unfused()
+        exact(f"K6 {key} against K6 and the torch join",
+              [x[lo:hi] for x in out], list(want))
+        exact(f"K6 {key} against its plain version",
+              [x[lo:hi] for x in out], [x[lo:hi] for x in out_plain])
+        n = hi - lo
+        rows[key] = dict(
+            n=n, ms=time_ms(fused, device, 20, 3),
+            graph_ms=graph_ms(fused, device),
+            unfused_ms=time_ms(unfused, device, 20, 3),
+            plain_ms=time_ms(plain, device, 10, 2),
+            bound_ms=(28 * n + 4 * cdf.shape[0]) / HBM_BYTES_PER_S * 1e3)
+        log("kernel", f"K6 {key}: " + json.dumps(rows[key]))
+    return rows
+
+
 def bench_kernel_pairs(device, edge: dict, mp: dict) -> list:
     """The six ``kernel_*`` scenarios at full width through
     ``run_scenarios``, each with the launch counts set to 0 just before it
@@ -2138,7 +2201,8 @@ def bench_kernel_pairs(device, edge: dict, mp: dict) -> list:
                 first_design_ms=time_ms(lambda: fd.powerlaw_sample(u, cdf),
                                         device, 20, 3),
                 library_equal_on_card=edge["k6_library_equal"],
-                **k6_timings(device, mp["seed"], mp["cfg"]), **bench))
+                **k6_timings(device, mp["seed"], mp["cfg"]),
+                **k6_join_timings(device, mp["seed"]), **bench))
         elif kernel == "windowed_ratio":
             (hist,) = args
             s, w, _ = hist.shape

@@ -55,8 +55,11 @@ _CONSTEXPR = re.compile(r"constexpr\s+(?:int|unsigned|long long)\s+(\w+)\s*"
                         r"=\s*([^;]+);")
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\(([^)]*)\)"
                      r"\s*)?(\w+)\s*\(")
-_OPT_IN = re.compile(r"cudaFuncSetAttribute\(\s*(\w+)\s*,\s*"
+_OPT_IN = re.compile(r"cudaFuncSetAttribute\(\s*([\w:]+)\s*,\s*"
                      r"cudaFuncAttributeMaxDynamicSharedMemorySize")
+# a named namespace, to the comment that closes it
+_NAMESPACE = re.compile(r"namespace\s+(\w+)\s*\{(.*?)\}\s*//\s*namespace\s+"
+                        r"\1\b", re.S)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,14 +105,22 @@ def _eval_int(expr: str, constants: dict) -> Optional[int]:
 
 
 def parse_source(text: str, name: str = "") -> KernelSource:
-    """The constants, ``__launch_bounds__`` and opt-ins of a CUDA source."""
+    """The constants, ``__launch_bounds__`` and opt-ins of a CUDA source.
+    A kernel inside a named namespace (closed by ``}  // namespace
+    <name>``) is keyed by its qualified name, ``join::sample_kernel``."""
     constants = {}
     for const, expr in _CONSTEXPR.findall(text):
         value = _eval_int(expr, constants)
         if value is not None:
             constants[const] = value
+    scopes = [(m.start(2), m.end(2), m.group(1))
+              for m in _NAMESPACE.finditer(text)]
     bounds = {}
-    for args, kernel in _GLOBAL.findall(text):
+    for m in _GLOBAL.finditer(text):
+        args, kernel = m.groups()
+        # a kernel of a named namespace by its qualified name
+        kernel = "".join(f"{ns}::" for a, b, ns in scopes
+                         if a <= m.start() < b) + kernel
         if not args:
             bounds[kernel] = (None, None)
             continue
@@ -286,8 +297,9 @@ def card_attributes(source: str) -> dict:
 
 def kernel_name(profiled: str) -> str:
     """``count_tiles_kernel`` of the profiler's ``(anonymous namespace)::
-    count_tiles_kernel(int const*, ...)``."""
-    return profiled.split("(", 2)[-2].rsplit("::", 1)[-1].strip() \
+    count_tiles_kernel(int const*, ...)``; a kernel of a namespace nested
+    in the anonymous one keeps that namespace (``join::sample_kernel``)."""
+    return profiled.split("(", 2)[-2].split(")::", 1)[-1].strip() \
         if profiled.startswith("(") else profiled.split("(")[0].rsplit(
             "::", 1)[-1]
 

@@ -51,6 +51,31 @@
 // from the L2 (tools/k6_mechanisms.py times the kernel with the searches
 // cut out or capped; PERF.md has the numbers).
 //
+// The join pass (powerlaw_sample_join; wrapper ops.py:powerlaw_sample_join)
+//   Replaces no TPU kernel: the JAX package's generate_chunk joins the
+//   columns with XLA's fused ops. It does K6's work for one half of a
+//   MalGen chunk (the marked or the unmarked rows) and writes that half's
+//   records in place, in the [P, C] columns the streaming step folds:
+//     site[i]  = K6's answer for u[i]
+//     mark[i]  = entity_mark_time[entity[i]] <= ts[i]
+//     seq[i]   = seq0 + i      (the row's event_seq)
+//     hash[i]  = hash_value    (the chunk's shard_hash)
+//   entity and ts were drawn into their rows before the call; u is the
+//   half's draws. The search is K6's (the same guide table, bracket and
+//   interleaved steps, as __device__ functions that both passes inline),
+//   and join::sample_kernel / join::direct_kernel keep K6's kernel names
+//   inside a nested namespace. What it adds to K6's 8 bytes a draw: entity
+//   and ts read, mark, seq and hash written, 20 bytes a record; the 4 MB
+//   mark table stays in the L2. It has its own __launch_bounds__ (2 blocks
+//   an SM: the join's streams need registers the plain search does not),
+//   so the plain sample_kernel keeps its registers and occupancy.
+//   The unmarked half starts at the row's marked count, which need not be a
+//   multiple of 4 (838,861 at 2^23 records a chunk), so its slices are not
+//   16-byte aligned: group g holds the draws 4g - skew .. 4g - skew + 3,
+//   where skew is the slices' shared offset from a 16-byte boundary, so a
+//   scalar head group brings every later group onto the boundary and only
+//   the first and the last group are written by element.
+//
 // Plain C interface, loaded with ctypes; returns the first CUDA error of
 // the call. Nothing is allocated here.
 
@@ -64,6 +89,7 @@ constexpr int kLogGuide = 13;
 constexpr int kGuide = 1 << kLogGuide;  // buckets of the guide table
 constexpr int kThreads = 512;           // sample_kernel's block
 constexpr int kBlocksPerSm = 3;
+constexpr int kJoinBlocksPerSm = 2;     // join::sample_kernel
 constexpr int kGuideThreads = 256;
 constexpr int kGuideInts = kGuide + 4;  // G + 1 entries, int4-padded
 constexpr int kSharedBytes = kGuideInts * (int)sizeof(int);
@@ -151,26 +177,68 @@ __device__ __forceinline__ void bracket(float x, const int* guide,
   }
 }
 
+// The guide table from global into shared memory, by a block of kThreads:
+// every int4 load of the copy in flight at once, then the last entry.
+__device__ __forceinline__ const int* copy_guide(int4* smem,
+                                                 const int* guide_g) {
+  constexpr int kPer = kGuide / 4 / kThreads;
+  const int4* src = reinterpret_cast<const int4*>(guide_g);
+  int4 v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    v[k] = __ldg(src + k * kThreads + threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) smem[k * kThreads + threadIdx.x] = v[k];
+  if (threadIdx.x == 0)
+    reinterpret_cast<int*>(smem)[kGuide] = __ldg(guide_g + kGuide);
+  __syncthreads();
+  return reinterpret_cast<const int*>(smem);
+}
+
+// The sites of four draws x, each found inside its bracket by an
+// upper-bound search, one step of each per pass, so that up to four
+// independent loads are in flight a thread; out[j] = min(answer, S - 1).
+__device__ __forceinline__ void search4(const float (&x)[4],
+                                        const int* guide,
+                                        const float* __restrict__ cdf,
+                                        int num_sites, int (&out)[4]) {
+  int lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) bracket(x[j], guide, num_sites, lo[j], hi[j]);
+  for (;;) {
+    float c[4];
+    int mid[4];
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mid[j] = lo[j] + ((hi[j] - lo[j]) >> 1);
+      c[j] = 0.f;
+      if (lo[j] < hi[j]) {
+        c[j] = __ldg(cdf + mid[j]);
+        live = true;
+      }
+    }
+    if (!live) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (lo[j] < hi[j]) {
+        if (c[j] <= x[j])
+          lo[j] = mid[j] + 1;
+        else
+          hi[j] = mid[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = min(lo[j], num_sites - 1);
+}
+
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     sample_kernel(const float* __restrict__ u, const float* __restrict__ cdf,
                   const int* __restrict__ guide_g, int* __restrict__ out,
                   int n, int num_sites, bool vec) {
   extern __shared__ int4 smem[];
-  {
-    // every int4 load of the copy in flight at once, then the last entry
-    constexpr int kPer = kGuide / 4 / kThreads;
-    const int4* src = reinterpret_cast<const int4*>(guide_g);
-    int4 v[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k)
-      v[k] = __ldg(src + k * kThreads + threadIdx.x);
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) smem[k * kThreads + threadIdx.x] = v[k];
-    if (threadIdx.x == 0)
-      reinterpret_cast<int*>(smem)[kGuide] = __ldg(guide_g + kGuide);
-  }
-  __syncthreads();
-  const int* guide = reinterpret_cast<const int*>(smem);
+  const int* guide = copy_guide(smem, guide_g);
 
   // draws i .. i + 3 (those below n)
   auto load4 = [&](int i) {
@@ -194,47 +262,144 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     const float x[4] = {next.x, next.y, next.z, next.w};
     // the next group's load is in flight while this one is searched
     if (g < groups - stride) next = load4((g + stride) << 2);
-    int lo[4], hi[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bracket(x[j], guide, num_sites, lo[j], hi[j]);
-    // four upper-bound searches, one step of each per pass, so that up
-    // to four independent loads are in flight a thread
-    for (;;) {
-      float c[4];
-      int mid[4];
-      bool live = false;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mid[j] = lo[j] + ((hi[j] - lo[j]) >> 1);
-        c[j] = 0.f;
-        if (lo[j] < hi[j]) {
-          c[j] = __ldg(cdf + mid[j]);
-          live = true;
-        }
-      }
-      if (!live) break;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (lo[j] < hi[j]) {
-          if (c[j] <= x[j])
-            lo[j] = mid[j] + 1;
-          else
-            hi[j] = mid[j];
-        }
-      }
-    }
+    int site[4];
+    search4(x, guide, cdf, num_sites, site);
     const int i = g << 2;
     if (vec && i + 4 <= n) {
       *reinterpret_cast<int4*>(out + i) =
-          make_int4(min(lo[0], num_sites - 1), min(lo[1], num_sites - 1),
-                    min(lo[2], num_sites - 1), min(lo[3], num_sites - 1));
+          make_int4(site[0], site[1], site[2], site[3]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (i + j < n) out[i + j] = min(lo[j], num_sites - 1);
+        if (i + j < n) out[i + j] = site[j];
     }
   }
 }
+
+namespace join {
+
+// One half-chunk's columns: the draws and drawn columns read, the
+// records' columns written (each [n], at one offset from a 16-byte
+// boundary when the pass runs vectorised).
+struct Rows {
+  const float* u;
+  const int* entity;
+  const int* ts;
+  const int* mark_time;  // [num_entities]
+  int* site;
+  int* mark;
+  int* seq;
+  int* hash;
+  int seq0;        // seq of record 0
+  int hash_value;  // every record's hash
+};
+
+// Below kDirect draws: one thread a record, one search over the whole CDF.
+__global__ void direct_kernel(Rows r, const float* __restrict__ cdf, int n,
+                              int num_sites) {
+  const int i = blockIdx.x * kDirectThreads + threadIdx.x;
+  if (i >= n) return;
+  const float x = __ldg(r.u + i);
+  const int t = __ldg(r.ts + i);
+  const int m = __ldg(r.mark_time + __ldg(r.entity + i));
+  const int s = x != x ? num_sites - 1 : upper_bound(cdf, 0, num_sites, x);
+  r.site[i] = min(s, num_sites - 1);
+  r.mark[i] = m <= t;
+  r.seq[i] = r.seq0 + i;
+  r.hash[i] = r.hash_value;
+}
+
+// The 16-byte loads and stores of the join's streams, each touched once:
+// evict-first (.cs), so that they pass through the L2 without pushing out
+// the mark table and the CDF, which every record reads at random.
+__device__ __forceinline__ int4 load4(const int* p) {
+  return __ldcs(reinterpret_cast<const int4*>(p));
+}
+__device__ __forceinline__ void store4(int* p, int4 v) {
+  __stcs(reinterpret_cast<int4*>(p), v);
+}
+
+// A group's inputs: four draws, entities and timestamps.
+struct Group {
+  float4 x;
+  int4 e;
+  int4 t;
+};
+
+__global__ void __launch_bounds__(kThreads, kJoinBlocksPerSm)
+    sample_kernel(Rows r, const float* __restrict__ cdf,
+                  const int* __restrict__ guide_g, int n, int num_sites,
+                  int skew, bool vec) {
+  extern __shared__ int4 smem[];
+  const int* guide = copy_guide(smem, guide_g);
+
+  // records i .. i + 3 (those in [0, n)), i = 4g - skew
+  auto full = [&](int i) { return vec && i >= 0 && i + 4 <= n; };
+  auto load = [&](int i) {
+    Group v;
+    if (full(i)) {
+      v.x = __ldcs(reinterpret_cast<const float4*>(r.u + i));
+      v.e = load4(r.entity + i);
+      v.t = load4(r.ts + i);
+      return v;
+    }
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    int e[4] = {0, 0, 0, 0}, t[4] = {0, 0, 0, 0};  // entity 0: a safe gather
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i + j >= 0 && i + j < n) {
+        x[j] = __ldg(r.u + i + j);
+        e[j] = __ldg(r.entity + i + j);
+        t[j] = __ldg(r.ts + i + j);
+      }
+    }
+    v.x = make_float4(x[0], x[1], x[2], x[3]);
+    v.e = make_int4(e[0], e[1], e[2], e[3]);
+    v.t = make_int4(t[0], t[1], t[2], t[3]);
+    return v;
+  };
+
+  // groups of 4 records, grid-stride; group 0 is the scalar head. No
+  // group is loaded ahead (unlike sample_kernel): the gathers and the
+  // search keep enough loads in flight, and it saves the registers.
+  const int groups = (int)(((long long)n + skew + 3) >> 2);
+  const int stride = gridDim.x * kThreads;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < groups;
+       g += stride) {
+    const Group cur = load((g << 2) - skew);
+    // the mark times: four gathers from the L2, in flight with the search
+    const int m[4] = {__ldg(r.mark_time + cur.e.x),
+                      __ldg(r.mark_time + cur.e.y),
+                      __ldg(r.mark_time + cur.e.z),
+                      __ldg(r.mark_time + cur.e.w)};
+    const float x[4] = {cur.x.x, cur.x.y, cur.x.z, cur.x.w};
+    int site[4];
+    search4(x, guide, cdf, num_sites, site);
+    const int t[4] = {cur.t.x, cur.t.y, cur.t.z, cur.t.w};
+    const int i = (g << 2) - skew;
+    if (full(i)) {
+      store4(r.site + i, make_int4(site[0], site[1], site[2], site[3]));
+      store4(r.mark + i, make_int4(m[0] <= t[0], m[1] <= t[1], m[2] <= t[2],
+                                   m[3] <= t[3]));
+      store4(r.seq + i, make_int4(r.seq0 + i, r.seq0 + i + 1,
+                                  r.seq0 + i + 2, r.seq0 + i + 3));
+      store4(r.hash + i, make_int4(r.hash_value, r.hash_value, r.hash_value,
+                                   r.hash_value));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (i + j >= 0 && i + j < n) {
+          r.site[i + j] = site[j];
+          r.mark[i + j] = m[j] <= t[j];
+          r.seq[i + j] = r.seq0 + i + j;
+          r.hash[i + j] = r.hash_value;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace join
 
 int sm_count() {
   int dev = 0, sms = 0;
@@ -286,6 +451,59 @@ extern "C" int powerlaw_sample(const float* u, const float* cdf, int* out,
   return (int)cudaGetLastError();
 }
 
+// K6's search and the mark join over one half-chunk of n records, written
+// in place (see the note at the top). One guide_kernel launch and one
+// join::sample_kernel launch, or one join::direct_kernel launch below
+// kDirect records, as powerlaw_sample makes.
+extern "C" int powerlaw_sample_join(const float* u, const float* cdf,
+                                    const int* entity, const int* ts,
+                                    const int* mark_time, int* site,
+                                    int* mark, int* seq, int* hash,
+                                    int* guide, long long n, int num_sites,
+                                    int seq0, int hash_value, void* stream) {
+  if (n <= 0 || n > 0x7fffffffLL || num_sites <= 0 || seq0 < 0
+      || seq0 > 0x7fffffffLL - n)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const join::Rows r{u, entity, ts, mark_time, site, mark, seq, hash, seq0,
+                     hash_value};
+  if (n < kDirect) {
+    join::direct_kernel<<<(unsigned)((n + kDirectThreads - 1)
+                                     / kDirectThreads),
+                          kDirectThreads, 0, st>>>(r, cdf, (int)n,
+                                                   num_sites);
+    return (int)cudaGetLastError();
+  }
+  if ((uintptr_t)guide % 16) return (int)cudaErrorMisalignedAddress;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  if (kSharedBytes > 48 * 1024) {  // a larger table than 2^13 buckets
+    const cudaError_t err = cudaFuncSetAttribute(
+        join::sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSharedBytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  guide_kernel<<<(unsigned)(num_sites / kGuideThreads + 1), kGuideThreads,
+                 0, st>>>(cdf, num_sites, guide);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // every slice at one offset from a 16-byte boundary: vectorised groups
+  // after a head of 4 - skew records; else every group by element
+  const uintptr_t off = (uintptr_t)site % 16;
+  const bool vec = off % 4 == 0 && (uintptr_t)u % 16 == off
+                   && (uintptr_t)entity % 16 == off
+                   && (uintptr_t)ts % 16 == off && (uintptr_t)mark % 16 == off
+                   && (uintptr_t)seq % 16 == off
+                   && (uintptr_t)hash % 16 == off;
+  const int skew = vec ? (int)(off / 4) : 0;
+  const long long need = ((n + skew + 3) / 4 + kThreads - 1) / kThreads;
+  const long long most = (long long)sms * kJoinBlocksPerSm;
+  join::sample_kernel<<<(unsigned)(need < most ? need : most), kThreads,
+                        kSharedBytes, st>>>(r, cdf, guide, (int)n, num_sites,
+                                            skew, vec);
+  return (int)cudaGetLastError();
+}
+
 // What the card reports for kernel k of this source, in the order of its
 // ops.py KERNELS: out = {static shared bytes, registers a thread, largest
 // block, largest dynamic shared bytes} (cudaFuncGetAttributes). For the
@@ -294,7 +512,9 @@ extern "C" int kernel_attributes(int k, int* out) {
   const void* const fns[] = {
       (const void*)direct_kernel,
       (const void*)guide_kernel,
-      (const void*)sample_kernel};
+      (const void*)sample_kernel,
+      (const void*)join::direct_kernel,
+      (const void*)join::sample_kernel};
   if (k < 0 || k >= (int)(sizeof(fns) / sizeof(fns[0])))
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;

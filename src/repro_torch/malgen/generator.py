@@ -18,7 +18,9 @@ chunk has the same layout (its first ``chunk_marked_records`` rows are
 marked-site traffic) and all its randomness comes from generators seeded
 by its chunk id, so the log is a pure function of (seed, chunk id).
 ``generate_chunks`` makes the P chunks that one streaming step folds as
-``[P, chunk_records]`` columns.
+``[P, chunk_records]`` columns, each written once in place (K6 fused with
+the mark join on the card); ``generate_chunk`` and
+``generate_chunked_log`` stay the plain composition it is held to.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from repro_torch.common import trace
 from repro_torch.common.nodes import resolve_device
 from repro_torch.common.types import EventLog
+from repro_torch.kernels.powerlaw_sample.ops import powerlaw_sample_join
 from repro_torch.malgen.powerlaw import sample_sites
 from repro_torch.malgen.seeding import (
     EventDraws,
@@ -37,6 +40,7 @@ from repro_torch.malgen.seeding import (
     SeedInfo,
     chunk_marked_records,
     draw_events,
+    draw_events_into,
     marked_event_stream,
 )
 
@@ -231,13 +235,53 @@ def generate_chunks(seed: SeedInfo, cfg: MalGenConfig,
                     chunk_ids: Sequence[int],
                     records_per_chunk: int) -> EventLog:
     """The chunks ``chunk_ids`` as ``[len(chunk_ids), records_per_chunk]``
-    columns: row d is node d's chunk of one streaming step. One
-    ``malgen.generate`` span."""
+    columns: row d is node d's chunk of one streaming step, equal to
+    ``generate_chunk(seed, cfg, chunk_ids[d], records_per_chunk)``.
+
+    Every column is written once, where it stays: the step's six int32
+    columns and one chunk's site draws are allocated (``malgen.assemble``,
+    no device work); a row's entity and timestamp draws go straight into
+    their slices of the row and its uniform draws into the buffer, from
+    ``generate_chunk``'s generators (``malgen.draw``); then one
+    ``powerlaw_sample_join`` a half of the row (marked rows, then
+    unmarked) writes the sites, the marks, the event ids and the hash
+    (``malgen.sample``; K6 and the join on the card). One
+    ``malgen.generate`` span; counts ``malgen.chunks_in_place``."""
+    c = records_per_chunk
+    n_marked = chunk_marked_records(cfg, c)
+    if seed.entity_mark_time.numel() < cfg.num_entities:
+        raise ValueError(f"the seed's mark table has "
+                         f"{seed.entity_mark_time.numel()} entities, the "
+                         f"config draws {cfg.num_entities}")
+    device = seed.entity_mark_time.device
+    halves = [h for h in ((0, n_marked, "chunk_marked", seed.marked_cdf),
+                          (n_marked, c, "chunk_unmarked", seed.unmarked_cdf))
+              if h[1] > h[0]]
+    hashes = chunk_shard_hash(torch.tensor(list(chunk_ids),
+                                           dtype=torch.int64)).tolist()
     with trace.span("malgen.generate"):
-        chunks = [generate_chunk(seed, cfg, c, records_per_chunk)
-                  for c in chunk_ids]
         with trace.span("malgen.assemble"):
-            return _stack_logs(chunks, torch.stack)
+            site, entity, ts, mark, event_seq, shard_hash = (
+                torch.empty((len(chunk_ids), c), dtype=torch.int32,
+                            device=device) for _ in range(6))
+            u = torch.empty(c, dtype=torch.float32, device=device)
+        for d, chunk_id in enumerate(chunk_ids):
+            with trace.span("malgen.draw"):
+                for lo, hi, stream, _ in halves:
+                    draw_events_into(seed.rng_seed, stream, chunk_id, cfg,
+                                     u[lo:hi], entity[d, lo:hi],
+                                     ts[d, lo:hi])
+            with trace.span("malgen.sample"):
+                for lo, hi, _, cdf in halves:
+                    powerlaw_sample_join(
+                        u[lo:hi], cdf, entity[d, lo:hi], ts[d, lo:hi],
+                        seed.entity_mark_time, site[d, lo:hi],
+                        mark[d, lo:hi], event_seq[d, lo:hi],
+                        shard_hash[d, lo:hi], seq_start=lo,
+                        hash_value=hashes[d])
+        trace.count("malgen.chunks_in_place", len(chunk_ids))
+    return EventLog(site_id=site, entity_id=entity, timestamp=ts, mark=mark,
+                    event_seq=event_seq, shard_hash=shard_hash)
 
 
 def generate_chunked_log(seed: SeedInfo, cfg: MalGenConfig, num_chunks: int,

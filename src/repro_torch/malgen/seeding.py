@@ -143,6 +143,23 @@ def draw_events(rng_seed: int, stream: str, shard: int, num: int,
                                 dtype=torch.int32))
 
 
+def draw_events_into(rng_seed: int, stream: str, shard: int,
+                     cfg: MalGenConfig, u: torch.Tensor, entity: torch.Tensor,
+                     timestamp: torch.Tensor) -> None:
+    """``draw_events`` written into ``u`` (float32), ``entity`` and
+    ``timestamp`` (int32), contiguous and of one length on one device: the
+    same numbers from the same generators (``torch.rand`` and
+    ``torch.randint`` are ``uniform_`` and ``random_`` on a new tensor),
+    drawn where they will stay."""
+    def gen(field):
+        return stream_generator(rng_seed, f"{stream}_{field}", shard,
+                                u.device)
+
+    u.uniform_(0, 1, generator=gen("site"))
+    entity.random_(0, cfg.num_entities, generator=gen("entity"))
+    timestamp.random_(0, cfg.span_seconds, generator=gen("ts"))
+
+
 def _site_tables(rng_seed: int, cfg: MalGenConfig, device,
                  draws: Optional[SiteDraws] = None):
     """(site_weights, marked_mask, marked_cdf, unmarked_cdf)."""

@@ -233,6 +233,28 @@ class TestKernelPasses:
         with pytest.raises(ValueError, match="plain constant"):
             kp.parse_source("__global__ void __launch_bounds__(kZ) g() {}")
 
+    def test_kernels_of_a_named_namespace_take_its_name(self):
+        """K6's join pass keeps K6's kernel names inside ``join``: the
+        source's tables key them apart from the plain ones."""
+        src = kp.parse_source(
+            "namespace {\n__global__ void __launch_bounds__(512, 3) k() {}\n"
+            "namespace join {\n__global__ void __launch_bounds__(512, 2) "
+            "k() {}\n__global__ void d() {}\n}  // namespace join\n"
+            "void h() { cudaFuncSetAttribute(join::k, "
+            "cudaFuncAttributeMaxDynamicSharedMemorySize, 1); }\n"
+            "}  // namespace\n")
+        assert src.bounds == {"k": (512, 3), "join::k": (512, 2),
+                              "join::d": (None, None)}
+        assert src.opt_in == {"join::k"}
+        k6 = SOURCES["powerlaw_sample"]
+        assert k6.bounds["join::sample_kernel"] == (512, 2)
+        assert set(k6.bounds) == set(ps.KERNELS) == set(ps.INDEX_TYPES) \
+            == set(ps.STATIC_SMEM_BYTES)
+        assert kp.kernel_name(
+            "(anonymous namespace)::join::sample_kernel((anonymous "
+            "namespace)::join::Rows, float const*, int const*, int, int, "
+            "int, bool)") == "join::sample_kernel"
+
     def test_seeded_64kb_launch_without_opt_in_fires_kg003(self):
         """A 64 KB launch of a kernel whose source never opts in, and of
         one that does but did not before this launch."""
@@ -340,6 +362,8 @@ class TestKernelPasses:
             "segment_hist/longest_row", "segment_hist/packed_longest_row",
             "powerlaw_sample/main_path", "powerlaw_sample/direct_limit",
             "powerlaw_sample/table_limit", "powerlaw_sample/most_draws",
+            "powerlaw_sample/join_marked", "powerlaw_sample/join_unmarked",
+            "powerlaw_sample/join_direct_limit",
             "windowed_ratio/nodedoctor", "windowed_ratio/masked_two_chunks",
             "windowed_ratio/most_sites",
             "windowed_ratio/masked_most_sites"}
@@ -358,6 +382,15 @@ class TestKernelPasses:
         assert (guide.grid, sample.grid) == (dim3(391), dim3(396))
         assert [l.kernel for l in plan("powerlaw_sample/direct_limit")] == [
             "direct_kernel"]
+        # the step's unmarked half: 7,549,747 records from one int past a
+        # 16-byte boundary, a head of 3 and 1,887,436 whole groups
+        guide, join = plan("powerlaw_sample/join_unmarked")
+        assert (guide.kernel, join.kernel) == ("guide_kernel",
+                                               "join::sample_kernel")
+        assert join.grid == dim3(2 * H100_SMS)
+        assert join.offsets["draws"] == 3 + 4 * 1_887_436 == 7_549_747
+        assert [l.kernel for l in plan("powerlaw_sample/join_direct_limit")
+                ] == ["join::direct_kernel"]
         assert plan("windowed_ratio/nodedoctor")[0].grid == dim3(1)
 
     def test_plans_match_records_taken_on_an_h100(self):

@@ -674,6 +674,166 @@ def test_powerlaw_sample_edge_cases_equal_plain(cuda_device):
         assert torch.equal(got, lib), name
 
 
+def _join_torch(u, cdf, entity, ts, mark_time, seq_start, hash_value):
+    """The join pass as plain K6 and torch ops: site, mark, seq, hash."""
+    from repro_torch.kernels.powerlaw_sample import powerlaw_sample
+
+    n = u.shape[0]
+    return (powerlaw_sample(u.contiguous(), cdf),
+            (mark_time[entity.long()] <= ts).int(),
+            torch.arange(seq_start, seq_start + n, dtype=torch.int32,
+                         device=u.device),
+            torch.full((n,), hash_value, dtype=torch.int32, device=u.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ((1 << 18) - 1, (1 << 18) + 5, 7_549_747))
+def test_join_at_every_skew_equals_k6_and_the_torch_join(cuda_device, n):
+    """K6's join pass on ``_k6_cases``'s MalGen CDF draws, with every
+    column at 0-3 ints past a 16-byte boundary (the unmarked half of a
+    row starts at 838,861, one int past), and with ``u`` alone at another
+    offset (every group by element): bit-equal to plain K6 and the torch
+    join, nothing written outside its slice, one launch a call."""
+    from repro_torch.kernels.powerlaw_sample import powerlaw_sample_join
+    from repro_torch.malgen import MalGenConfig
+    from repro_torch.malgen.seeding import _site_tables
+
+    _, _, _, cdf = _site_tables(0, MalGenConfig(num_sites=120_000), "cpu")
+    cdf = cdf.to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    base_u = torch.rand(n + 8, generator=g, device=cuda_device)
+    base_u[:: 4099] = torch.tensor(float("nan"))
+    base_u[1:: 5003] = 1.0
+    base_e = torch.randint(0, 1_000_000, (n + 8,), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    base_t = torch.randint(0, 31_536_000, (n + 8,), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    mark_time = torch.randint(0, 40_000_000, (1_000_000,), generator=g,
+                              device=cuda_device, dtype=torch.int32)
+    for skew, u_skew in ((0, 0), (1, 1), (2, 2), (3, 3), (1, 2), (0, 3)):
+        u = base_u[u_skew:u_skew + n]
+        e, t = base_e[skew:skew + n], base_t[skew:skew + n]
+        out = [torch.full((n + 8,), -7, dtype=torch.int32,
+                          device=cuda_device) for _ in range(4)]
+        reset_launch_counts()
+        powerlaw_sample_join(u, cdf, e, t, mark_time,
+                             *[o[skew:skew + n] for o in out],
+                             seq_start=838_861, hash_value=-123_456)
+        assert launch_counts()["powerlaw_sample"] == 1
+        want = _join_torch(u, cdf, e, t, mark_time, 838_861, -123_456)
+        for name, o, w in zip(("site", "mark", "seq", "hash"), out, want):
+            msg = f"{name} skew={skew} u_skew={u_skew}"
+            assert torch.equal(o[skew:skew + n], w), msg
+            assert (o[:skew] == -7).all() and (o[skew + n:] == -7).all(), \
+                msg
+
+
+@pytest.mark.cuda
+def test_draws_into_row_slices_equal_draw_events(cuda_device):
+    """A chunk's draws made straight into its row (``draw_events_into``)
+    at the main path's sizes and offsets (838,861 marked rows from 0,
+    7,549,747 unmarked from 838,861) are ``draw_events``' numbers."""
+    from repro_torch.malgen import MalGenConfig
+    from repro_torch.malgen.seeding import draw_events, draw_events_into
+
+    cfg = MalGenConfig(num_sites=120_000)
+    c, n_m = 1 << 23, 838_861
+    for chunk_id in (0, 5, 951):
+        u = torch.empty(c, device=cuda_device)
+        ent = torch.empty(2, c, dtype=torch.int32, device=cuda_device)
+        ts = torch.empty(2, c, dtype=torch.int32, device=cuda_device)
+        for lo, hi, stream in ((0, n_m, "chunk_marked"),
+                               (n_m, c, "chunk_unmarked")):
+            draw_events_into(2**31 + 7, stream, chunk_id, cfg, u[lo:hi],
+                             ent[1, lo:hi], ts[1, lo:hi])
+            want = draw_events(2**31 + 7, stream, chunk_id, hi - lo, cfg,
+                               cuda_device)
+            assert torch.equal(u[lo:hi], want.u_site), (stream, chunk_id)
+            assert torch.equal(ent[1, lo:hi], want.entity), stream
+            assert torch.equal(ts[1, lo:hi], want.timestamp), stream
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c", [(8, 1 << 23), (3, 100_000), (2, 524_291)])
+def test_generate_chunks_in_place_equals_stacked_chunks(cuda_device, p, c):
+    """The step written in place equals ``generate_chunk``'s chunks (plain
+    K6 and the torch join) stacked, column by column: at the main path's
+    [8, 2^23] under ``make_seed_streaming``'s B-10 tables, at 100,000
+    records (both halves below 2^18: the direct variant), and at 524,291
+    (a direct marked half, an unaligned table half); K6 counted twice a
+    chunk."""
+    from repro_torch.malgen import (
+        MalGenConfig,
+        generate_chunk,
+        generate_chunks,
+        make_seed_streaming,
+    )
+
+    cfg = MalGenConfig(num_sites=120_000)
+    seed = make_seed_streaming(2**31 + 99, cfg, 16, c, device=cuda_device)
+    ids = [0, 15, 3, 9, 1, 2, 7, 4][:p]
+    reset_launch_counts()
+    step = generate_chunks(seed, cfg, ids, c)
+    assert launch_counts()["powerlaw_sample"] == 2 * p
+    for f in ("site_id", "entity_id", "timestamp", "mark", "event_seq",
+              "shard_hash"):
+        got = getattr(step, f)
+        assert got.shape == (p, c) and got.is_contiguous(), f
+        for d, chunk in enumerate(ids):
+            want = getattr(generate_chunk(seed, cfg, chunk, c), f)
+            assert torch.equal(got[d], want), (f, chunk)
+    assert step.mark.any() and not step.mark.all()
+
+
+_PROFILE_STEP = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.malgen import MalGenConfig, generate_chunks, make_seed_streaming
+cfg = MalGenConfig(num_sites=120_000)
+c = int(sys.argv[1])
+seed = make_seed_streaming(5, cfg, 8, c, device="cuda")
+generate_chunks(seed, cfg, list(range(8)), c)
+torch.cuda.synchronize()
+reset_launch_counts()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    generate_chunks(seed, cfg, list(range(8)), c)
+    torch.cuda.synchronize()
+names = [e.name() for e in prof.profiler.kineto_results.events()
+         if e.device_type() == DeviceType.CUDA]
+print(json.dumps({"launches": launch_counts()["powerlaw_sample"],
+                  "k6": sum("::sample_kernel(" in n or "direct_kernel(" in n
+                            for n in names),
+                  "join": sum("join::" in n for n in names)}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", (1 << 23, 100_000))
+def test_generate_chunks_leaves_a_k6_record_a_launch(cuda_device, c):
+    """One step profiled in a fresh process (a long-lived one drops the
+    first kernel records of a session): the records whose names hold
+    ``::sample_kernel(`` or ``direct_kernel(`` (what a traced benchmark
+    run holds against K6's launches) equal ``powerlaw_sample``'s
+    launches, two a chunk, all of them the join pass's."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    r = subprocess.run([sys.executable, "-c", _PROFILE_STEP, str(c)],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ,
+                            "PYTHONPATH": str(src)})
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"launches": 16, "k6": 16, "join": 16}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", (1, 2, 31, 32, 33, 52, 64, 65, 130))
 @pytest.mark.parametrize("s", (1, 7, 1001))

@@ -33,6 +33,7 @@ from repro.malgen import powerlaw as jax_powerlaw
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.powerlaw_sample import (
     powerlaw_sample,
+    powerlaw_sample_join,
     powerlaw_sample_plain,
     powerlaw_sample_ref,
 )
@@ -151,6 +152,76 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert launch_counts()["powerlaw_sample"] == 0
     np.testing.assert_array_equal(
         got, _port(powerlaw_sample_plain, u, cdf))
+
+
+def _join_case(n: int, skew: int, seed: int):
+    """A join call's arguments over ``n`` records, every column at
+    ``skew`` ints into its buffer (as the unmarked half of a row lies)."""
+    rng = np.random.default_rng(seed)
+    cdf = _cdf("masked", 700, seed)
+    entity = rng.integers(0, 50, n + skew, dtype=np.int32)
+    ts = rng.integers(0, 1000, n + skew, dtype=np.int32)
+    u = np.concatenate([np.zeros(skew, np.float32), _draws(n, cdf, seed)])
+    cols = [torch.tensor(u)[skew:], torch.tensor(cdf),
+            torch.tensor(entity)[skew:], torch.tensor(ts)[skew:],
+            torch.tensor(rng.integers(0, 1000, 50, dtype=np.int32))]
+    out = [torch.full((n + skew,), -7, dtype=torch.int32)[skew:]
+           for _ in range(4)]
+    return cols, out
+
+
+@pytest.mark.parametrize("skew", (0, 1, 3))
+def test_join_on_cpu_takes_the_plain_version_and_counts_no_launch(skew):
+    """The join pass on CPU tensors: K6's answer (the plain count), the
+    mark joined, the event ids from ``seq_start`` and the hash, each
+    written into its slice and nothing outside it; no launch counted."""
+    (u, cdf, entity, ts, mark_time), out = _join_case(3001, skew, 4)
+    reset_launch_counts()
+    powerlaw_sample_join(u, cdf, entity, ts, mark_time, *out,
+                         seq_start=838_861, hash_value=-5)
+    assert launch_counts()["powerlaw_sample"] == 0
+    site, mark, seq, hsh = out
+    assert torch.equal(site, powerlaw_sample_plain(u, cdf))
+    assert torch.equal(mark, (mark_time[entity.long()] <= ts).int())
+    assert mark.sum() > 0 and (1 - mark).sum() > 0
+    assert torch.equal(seq, torch.arange(838_861, 838_861 + 3001,
+                                         dtype=torch.int32))
+    assert (hsh == -5).all()
+    for col in out:
+        assert col.dtype == torch.int32
+        if skew:
+            assert (col._base[:skew] == -7).all()
+
+
+def test_join_rejects_what_the_kernel_does_not_take():
+    (u, cdf, entity, ts, mark_time), out = _join_case(10, 0, 1)
+    site, mark, seq, hsh = out
+
+    def call(**kw):
+        args = dict(u=u, cdf=cdf, entity=entity, timestamp=ts,
+                    mark_time=mark_time, site=site, mark=mark, event_seq=seq,
+                    shard_hash=hsh)
+        args.update(kw)
+        powerlaw_sample_join(**args, seq_start=0, hash_value=0)
+
+    bad = [
+        (dict(u=u.double()), "u must be"),
+        (dict(cdf=cdf.double()), "cdf must be"),
+        (dict(entity=entity[:9]), "entity must be"),
+        (dict(mark=mark.long()), "mark must be"),
+        (dict(site=torch.zeros(20, dtype=torch.int32)[::2]), "contiguous"),
+        (dict(mark_time=mark_time[:0]), "mark_time is empty"),
+        (dict(mark_time=mark_time.reshape(5, 10)), "mark_time must be"),
+        (dict(u=u[:0], entity=entity[:0], timestamp=ts[:0], site=site[:0],
+              mark=mark[:0], event_seq=seq[:0], shard_hash=hsh[:0]), "n=0"),
+        (dict(shard_hash=hsh.to("meta")), "shard_hash on"),
+    ]
+    for kw, match in bad:
+        with pytest.raises(ValueError, match=match):
+            call(**kw)
+    with pytest.raises(ValueError, match="leave int32"):
+        powerlaw_sample_join(u, cdf, entity, ts, mark_time, *out,
+                             seq_start=2**31 - 10, hash_value=0)
 
 
 def test_plain_version_is_the_comparison_count():

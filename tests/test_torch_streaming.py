@@ -125,6 +125,10 @@ from repro_torch.core.streaming import (  # noqa: E402
     snapshot,
     state_init,
 )
+from repro_torch.kernels import (  # noqa: E402
+    launch_counts,
+    reset_launch_counts,
+)
 from repro_torch.malgen import (  # noqa: E402
     ChunkMarkDraws,
     EventDraws,
@@ -311,6 +315,36 @@ def test_port_chunks_are_a_function_of_the_chunk_id():
     one = make_seed(3, TCFG, 2400, device="cpu")
     for f in ("marked_mask", "site_weights", "marked_cdf", "unmarked_cdf"):
         assert torch.equal(getattr(one, f), getattr(seed, f)), f
+
+
+@pytest.mark.parametrize("chunk_ids,records", [
+    ([3], 512),                    # P = 1
+    ([2, 0, 1], 4010),             # P = 3; 1,203 marked rows: odd
+    (list(range(8)), 1000),        # P = 8
+    ([9, 3, 17, 4], 2048),         # a gang's local ids: not consecutive
+    ([5, 6], 1),                   # no marked row
+])
+def test_generate_chunks_writes_the_stacked_chunks_in_place(chunk_ids,
+                                                            records):
+    """The step's columns, written in place a half-row at a time, equal
+    the one-shot chunks stacked (``generate_chunk``, the plain composition
+    over plain K6), column by column, at row counts P = 1, 3 and 8, chunk
+    sizes below 2^18 with an odd marked count (the unmarked half starts
+    off a 16-byte boundary) or none, and non-consecutive chunk ids; the
+    CPU counts no launch."""
+    seed = make_seed_streaming(11, TCFG, 18, records, device="cpu")
+    reset_launch_counts()
+    step = generate_chunks(seed, TCFG, chunk_ids, records)
+    assert launch_counts()["powerlaw_sample"] == 0
+    want = [generate_chunk(seed, TCFG, c, records) for c in chunk_ids]
+    for f in EventLog._fields:
+        if getattr(want[0], f) is None:
+            assert getattr(step, f) is None, f
+            continue
+        col = getattr(step, f)
+        assert col.shape == (len(chunk_ids), records) and col.is_contiguous()
+        assert col.dtype == torch.int32, f
+        assert torch.equal(col, torch.stack([getattr(w, f) for w in want])), f
 
 
 def test_merge_stats_matches_jax_with_int32_wrap():

@@ -191,9 +191,8 @@ def test_streaming_span_tree(backend):
         gen, fold = _children(spans, j)
         assert [spans[gen].name, spans[fold].name] == ["malgen.generate",
                                                        "stream.fold"]
-        assert _names(spans, gen) == ["malgen.draw", "malgen.sample",
-                                      "malgen.assemble"] * P \
-            + ["malgen.assemble"]
+        assert _names(spans, gen) == ["malgen.assemble"] \
+            + ["malgen.draw", "malgen.sample"] * P
         inner = [spans[k].name for k in _children(spans, fold)]
         if backend == "sphere":
             assert inner == []
@@ -217,6 +216,19 @@ def test_streaming_span_tree(backend):
         assert syncs == {"host.syncs.global_count": STEPS + rounds,
                          "host.syncs.capacity": 1, "host.syncs.rounds": 1,
                          "host.syncs.overflow": 1}
+
+
+@pytest.mark.parametrize("backend", ["sphere", "mapreduce"])
+def test_generation_counts_its_chunks_in_place(backend):
+    """``malgen.chunks_in_place`` counts P a step: every chunk of the
+    job was written in place."""
+    seed = _seed()
+    trace.start()
+    _job(seed, backend)
+    spans, counters = trace.stop()
+    steps = sum(s.name == "stream.step" for s in spans)
+    assert steps == STEPS
+    assert counters["malgen.chunks_in_place"] == P * steps
 
 
 def test_results_equal_on_and_off():
@@ -319,6 +331,26 @@ def test_by_span_path_names_gaps_by_the_program_span():
                                                       None, 0)]
     assert trace_cell.idle_s_by_step(r["gaps"], steps) == {
         0: pytest.approx(5e-9 + 130e-9), 1: pytest.approx(105e-9)}
+
+
+def test_device_ops_are_counted_by_the_span_that_launched_them():
+    """Each device operation in the window counts once, under the span
+    path its launch fell in (an operation hidden by an earlier one's
+    overlap too); the generate reading gives them a step, beside the
+    chunks written in place a step."""
+    r = trace_cell.by_span_path(HOST, DEV, LAUNCH, 0, 1000)
+    step = "malbench.job/run.job/stream.step"
+    assert r["device_ops_by_span_path"] == {
+        step: 1, f"{step}/stream.fold": 2, f"{step}/malgen.generate": 1,
+        trace_cell.NO_LAUNCH: 1}
+    spans = [Span("stream.step", 200, 500, None, 0),
+             Span("stream.step", 500, 780, None, 1)]
+    view = {"spans": spans, "counters": {"malgen.chunks_in_place": 16},
+            "window": None, "paths": r}
+    got = trace_cell.span_metrics(spans, view["counters"], None, r)
+    gen = got["generate.device_ms_per_step"]
+    assert gen["launches"] == 0.5 and gen["step_launches"] == 2.0
+    assert gen["chunks_in_place"] == 8.0
 
 
 def test_span_segments_cover_overlaps_once():

@@ -19,7 +19,8 @@ spans:
   that the host was inside while the card idled;
 - ``device_s_by_span_path``: the window's busy seconds by the chain of
   spans in which the host launched each device operation (joined by the
-  profiler's correlation id of the CUDA runtime call);
+  profiler's correlation id of the CUDA runtime call), and
+  ``device_ops_by_span_path`` how many operations each launched;
 - ``span_metrics``: per-layer readings of the spans and counters (see
   :data:`SPAN_METRICS`);
 - ``idle_s_by_step`` (batch cells): the idle seconds by a job's step
@@ -139,7 +140,9 @@ def by_span_path(host: list, device: list, launches: dict, w0: int,
     ``launches``: correlation -> the host time of the runtime call that
     launched it. Busy time is the union of the operations; where two
     overlap, the earlier one takes the shared time. Returns
-    ``idle_s_by_span_path``, ``device_s_by_span_path``, ``window_s``,
+    ``idle_s_by_span_path``, ``device_s_by_span_path``,
+    ``device_ops_by_span_path`` (how many device operations, kernels and
+    copies, each span path launched), ``window_s``,
     ``busy_s``, the ``TOP`` longest ``idle_gaps`` (``[path at the gap's
     middle, s]``), ``launch_matched`` (the share of device seconds whose
     launch record was found) and ``gaps``, every idle ``(start, end)``."""
@@ -149,13 +152,15 @@ def by_span_path(host: list, device: list, launches: dict, w0: int,
                  if b > w0 and a < w1)
     busy: list = []
     device_s: dict = {}
+    device_ops: dict = {}
     cursor = w0
     for a, b, corr in ops:
+        t = launches.get(corr)
+        path = NO_LAUNCH if t is None else path_at(segments, starts, t)
+        device_ops[path] = device_ops.get(path, 0) + 1
         lo = max(a, cursor)
         if b <= lo:
             continue
-        t = launches.get(corr)
-        path = NO_LAUNCH if t is None else path_at(segments, starts, t)
         device_s[path] = device_s.get(path, 0.0) + (b - lo) / 1e9
         if busy and lo <= busy[-1][1]:
             busy[-1][1] = b
@@ -176,6 +181,7 @@ def by_span_path(host: list, device: list, launches: dict, w0: int,
     return {
         "window_s": (w1 - w0) / 1e9, "busy_s": busy_s,
         "idle_s_by_span_path": idle_s, "device_s_by_span_path": device_s,
+        "device_ops_by_span_path": device_ops,
         "idle_gaps": [[path_at(segments, starts, (a + b) // 2),
                        (b - a) / 1e9] for a, b in top],
         "launch_matched": (1.0 - device_s.get(NO_LAUNCH, 0.0) / busy_s
@@ -254,9 +260,20 @@ def _generate_device(view: dict):
         return 1e3 * sum(s for p, s in dev.items()
                          if part in p.split("/")) / steps
 
-    return {"value": ms("malgen.generate"), "draw": ms("malgen.draw"),
-            "sample": ms("malgen.sample"), "assemble": ms("malgen.assemble"),
-            "steps": steps}
+    out = {"value": ms("malgen.generate"), "draw": ms("malgen.draw"),
+           "sample": ms("malgen.sample"), "assemble": ms("malgen.assemble"),
+           "steps": steps}
+    ops = paths.get("device_ops_by_span_path")
+    if ops:
+        # device operations launched a step: by generation, by the step
+        for key, part in (("launches", "malgen.generate"),
+                          ("step_launches", "stream.step")):
+            out[key] = sum(n for p, n in ops.items()
+                           if part in p.split("/")) / steps
+    chunks = view["counters"].get("malgen.chunks_in_place")
+    if chunks is not None:
+        out["chunks_in_place"] = chunks / steps
+    return out
 
 
 def _job_edges(view: dict):
