@@ -44,10 +44,20 @@
    B-fixed equal the counting path's; the columns exchange's shuffle stats
    equal its (``bytes_exchanged`` at 17 bytes a slot). Each run launches
    exactly its kernels: K4 (and K1, K2 a round for columns), K6 nodes + 1
-   times where it generates, K7 once for statistic B. Prints each
-   backend's stage times, records/s, peak memory and profile, then checks
-   and times K4 at these shapes as in 4, over sites drawn uniformly and
-   at a service step's 2^20 records a node.
+   times where it generates, K7 once for statistic B, K8 (the combiner's
+   block exchange, counted in ``combine_blocks.launches``, outside
+   ``launch_counts()``) once for the combiner and never for the others.
+   Prints each backend's stage times, records/s, peak memory and profile,
+   then checks and times K4 at these shapes as in 4, over sites drawn
+   uniformly and at a service step's 2^20 records a node. Then K8: on
+   these records' local histograms bit-equal to its plain version (the
+   torch path: ``nodes.all_to_all``, ``nodes.psum``, the add), and at the
+   benchmark's combiner step (``[8, 120,000, 52, 2]`` int32 over every
+   value, so the sums wrap, into ``[8, 15,000, 52, 2]``) bit-equal to it
+   and to a two-op torch yardstick (one int32 sum over a view, an add
+   through a permuted view), each timed (K8 with its wrapper and as a
+   CUDA graph, the yardstick also as a graph) against K8's byte bound
+   8 S W (P + 2) at 3.35 TB/s, with the bytes each allocates.
 6. At 8 x 2^20 records, the card's result equals the port's own CPU run of
    the same log (histogram, rho bits, every ShuffleStats field).
 7. The query service: (a) K5, the masked window-ratio kernel, bit-equal to
@@ -62,7 +72,8 @@
    streaming engine (rho bits of A, B and B-fixed, every ShuffleStats
    field) and the one-shot counting run over ``generate_chunked_log``;
    each ingest step launches K6 twice a node (a chunk's marked and
-   unmarked draws) and each B result K7 once;
+   unmarked draws) and K8 once on the combiner (never elsewhere), and
+   each B result K7 once;
    the ``mixed`` and ``growing`` query batches launch K5 once each, equal
    its plain version, and the 52 growing B answers equal ``malstone_b``'s
    rho columns. Prints ingest and query latency percentiles, records/s,
@@ -115,7 +126,7 @@
    ``run_scenarios`` at 4,096 records a node (64 chunks of 64 records),
    launches in the path's exact ratios; (d) the runner on ``streams`` and
    ``mapreduce_combiner`` at 2 steps equal to their streaming engine, K4
-   once a step.
+   once a step, K8 once a combiner step.
 10. Resumable runs (``repro_torch.core.resume``) at ``MalGenConfig()``
    widths, 8 nodes x 8 steps of 2^20 records, mapreduce counting at
    capacity factor 2.0, statistic B, in 4 segments of 2 steps: (1) equal
@@ -298,7 +309,10 @@ path, ``overlap_launches`` from phase 9's runner, ``resume_launches`` from
 phase 10's two fault-free runs, mapreduce and streams, ``gang_launches``
 from rank 0 of phase 11's mapreduce gang of 2, ``trainer_launches`` from
 phase 13's real-clock run, ``lm_train_launches`` from phase 15's three
-training runs, ``pipe_launches`` from phase 16), then ``{"sanitizer": ...}`` (what phase 12's
+training runs, ``pipe_launches`` from phase 16; K8's entry, last, has
+``launches`` from phase 5's three combiner runs, ``serve_launches`` from
+phase 7 and ``overlap_launches`` from phase 9 (d)), then
+``{"sanitizer": ...}`` (what phase 12's
 compute-sanitizer did), then the card's name and power limit as
 nvidia-smi gives them, then ``{"ok": true, "device": ...}`` as the last
 line. Exits non-zero, printing no result, without a CUDA device or when
@@ -503,7 +517,16 @@ KERNEL_INFO = {
     "windowed_ratio": (
         "src/repro_torch/kernels/csrc/windowed_ratio.cu",
         "src/repro/kernels/windowed_ratio/windowed_ratio.py:29"),
+    # K8 replaces no TPU kernel: the JAX package's combiner exchange is
+    # XLA's all_to_all and a sum
+    "combine_blocks": (
+        "src/repro_torch/kernels/csrc/combine_blocks.cu",
+        "none (src/repro/core/backends/mapreduce.py:"
+        "mapreduce_combiner_histogram)"),
 }
+# K8 at the benchmark's combiner step: 8 nodes' [8, 120,000, 52, 2] local
+# histograms into the [8, 15,000, 52, 2] owned carry (P, S/P, W)
+K8_CELL = (8, 15_000, 52)
 # the kernels of the counting main path (phase 3): K6 samples the sites of
 # the generated records, K7 finalizes MalStone B
 MAIN_KERNELS = ("count_scatter.count", "count_scatter.scatter",
@@ -621,6 +644,15 @@ def exact(name: str, got, want) -> float:
     check(err == 0.0, f"{name}: kernel differs from its plain version "
                       f"(max abs err {err})")
     return err
+
+
+def k8_module():
+    """K8's wrapper module. Its launch counter, ``combine_blocks.
+    launches``, is outside ``launch_counts()``: a phase that runs the
+    combiner sets it to 0 just before and reads it just after."""
+    from repro_torch.kernels.combine_blocks import ops
+
+    return ops
 
 
 # ------------------------------------------------------------- phase 1
@@ -1253,8 +1285,8 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
     """Drive streams, sphere and mapreduce_combiner over the main path's
     generated records, and mapreduce with the columns exchange,
     partitioned, over the same shards as a log; check each against the
-    counting path and K4's launches; time stages and runs. Returns K4's
-    kernels-line entry."""
+    counting path and K4's and K8's launches; time stages and runs.
+    Returns K4's and K8's kernels-line entries."""
     from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
     from repro_torch.core import run
     from repro_torch.core.backends.mapreduce import static_capacity
@@ -1288,7 +1320,8 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                        device=device, return_shuffle_stats=True)
         return run(seed, backend=path, statistic=stat, **gen)
 
-    k4_launches = {}
+    cb = k8_module()
+    k4_launches, k8_launches = {}, {}
     for path in ("streams", "sphere", "mapreduce_combiner",
                  "mapreduce+columns"):
         blocks = path == "mapreduce+columns"
@@ -1299,9 +1332,11 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                 torch.cuda.reset_peak_memory_stats(device)
                 base = torch.cuda.memory_allocated(device)
             reset_launch_counts()
+            cb.combine_blocks.launches = 0
             result, stats = drive(path, stat)
             sync(device)
             launches = launch_counts()
+            k8 = cb.combine_blocks.launches
             if cuda:
                 peak = torch.cuda.max_memory_allocated(device)
             ref, ref_stats = want[stat]
@@ -1338,6 +1373,10 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                       "windowed_ratio": int(stat == "B")}
             check(launches == expect, f"{path} {stat}: launches "
                                       f"{launches}, expected {expect}")
+            # the combiner's one fold exchanges its blocks through K8
+            check(k8 == int(cuda and path == "mapreduce_combiner"),
+                  f"{path} {stat}: {k8} K8 launches")
+            k8_launches[path] = k8_launches.get(path, 0) + k8
         k4_launches[path] = launches["segment_hist"]
         samples = [time_ms(lambda: drive(path, "B"), device, iters=1,
                            warmup=0) for _ in range(runs)]
@@ -1393,7 +1432,90 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
             lambda: sh.segment_hist_plain(*uniform, **kw), device, 2, 1),
         chunk_2_20_ms=time_ms(lambda: sh.segment_hist(*chunk, **kw), device,
                               10, 2))
-    return k4
+    # K8 on these records' local histograms (counts), into a zero carry
+    local = sh.segment_hist(*cols, **kw)
+    owned = torch.zeros(nodes, s_pad // nodes, weeks, 2, dtype=torch.int32,
+                        device=device)
+    exact("K8 on the local histograms of these records",
+          cb.combine_blocks(local, owned.clone()),
+          cb.combine_blocks_plain(local, owned))
+    del local, owned, keys, uniform, chunk
+    k8 = combine_blocks_row(device, k8_launches["mapreduce_combiner"])
+    k8["launches_by_path"] = k8_launches
+    return k4, k8
+
+
+def k8_library(local, carry):
+    """The combine in two torch ops, a yardstick the port never calls: one
+    int32 sum over the senders of a view of ``local`` (the owners' blocks
+    in site order), added into ``carry`` through a permuted view. Wraps
+    modulo 2^32 as K8 does."""
+    p, s, w, _ = local.shape
+    carry += local.view(p, s // p, p, w, 2).sum(
+        0, dtype=torch.int32).permute(1, 0, 2, 3)
+    return carry
+
+
+def extra_bytes(fn, device) -> int:
+    """Bytes one call of ``fn`` allocates on the card beyond what was
+    allocated before it (0 on the CPU)."""
+    if device.type != "cuda":
+        fn()
+        return 0
+    sync(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    sync(device)
+    return torch.cuda.max_memory_allocated(device) - base
+
+
+def combine_blocks_row(device, launches: int, shape=K8_CELL) -> dict:
+    """K8 at the benchmark's combiner step (``shape`` = P, S/P, W) over
+    every int32 value, so its sums wrap: bit-equal to its plain version
+    (the torch path it replaced: the transposed copy, the int64 sum and
+    its wrap, the add) and to the two-op yardstick; timed with the
+    wrapper (``ms``), as a CUDA graph (``graph_ms``) and beside both, with
+    the bytes each allocates; K8's entry of the kernels line."""
+    cb = k8_module()
+    p, s_local, w = shape
+    g = torch.Generator(device=device).manual_seed(8)
+
+    def ints(*size):
+        return torch.randint(-2**31, 2**31 - 1, size, generator=g,
+                             dtype=torch.int32, device=device)
+
+    local, carry = ints(p, p * s_local, w, 2), ints(p, s_local, w, 2)
+    want = cb.combine_blocks_plain(local, carry.clone())
+    before = cb.combine_blocks.launches
+    err = exact("K8 at the combiner cell's step",
+                cb.combine_blocks(local, carry.clone()), want)
+    check(cb.combine_blocks.launches - before == int(device.type == "cuda"),
+          "K8: a call did not launch once")
+    exact("K8's two-op torch yardstick", k8_library(local, carry.clone()),
+          want)
+    del want
+
+    def kernel():
+        cb.combine_blocks(local, carry)
+
+    def plain():
+        cb.combine_blocks_plain(local, carry)
+
+    def library():
+        k8_library(local, carry)
+
+    cuda = device.type == "cuda"
+    return kernel_row(
+        "combine_blocks", launches, err,
+        time_ms(kernel, device, 20, 2), time_ms(plain, device, 5, 1),
+        time_ms(library, device, 20, 2),
+        8 * p * s_local * w * (p + 2), shape=[p, p * s_local, w, 2],
+        graph_ms=graph_ms(kernel, device) if cuda else None,
+        library_graph_ms=graph_ms(library, device) if cuda else None,
+        extra_bytes=extra_bytes(kernel, device),
+        plain_extra_bytes=extra_bytes(plain, device),
+        library_extra_bytes=extra_bytes(library, device))
 
 
 def backend_stages(path, seed, cfg, flat, nodes, rps, s_pad, capacity,
@@ -1595,7 +1717,8 @@ def timed_samples(fn, n: int, device) -> list:
 def serving(device, nodes: int, chunk: int, steps: int,
             small_steps: int) -> dict:
     """Drive ``MalStoneService`` for every backend and check it; returns
-    K5's kernels-line entry."""
+    K5's kernels-line entry and K8's launches (the combiner's ingest
+    steps)."""
     from repro_torch.bench.schema import latency_percentiles as percentiles
     from repro_torch.common.types import ExchangePlan, WEEKS_PER_YEAR
     from repro_torch.core import malstone_run, run
@@ -1620,7 +1743,8 @@ def serving(device, nodes: int, chunk: int, steps: int,
     mixes = {m: build_query_mix(m, num_sites=num_sites, top_k=8)
              for m in ("mixed", "growing")}
     seeds, oneshot = {}, {}
-    k5_launches, k5_inputs, k7_launches = 0, None, 0
+    k5_launches, k5_inputs, k7_launches, k8_launches = 0, None, 0, 0
+    cb = k8_module()
     round_bound = shuffle_round_bound(
         chunk, static_capacity(chunk, nodes, CAPACITY_FACTOR))
     for backend, n_steps in (("streams", steps), ("mapreduce", steps),
@@ -1651,9 +1775,11 @@ def serving(device, nodes: int, chunk: int, steps: int,
         ingest_ms, per_step = [], []
         for _ in range(n_steps):
             reset_launch_counts()
+            cb.combine_blocks.launches = 0
             ingest_ms += timed_samples(lambda: svc.ingest_chunks(1), 1,
                                        device)
-            per_step.append(launch_counts())
+            per_step.append(launch_counts()
+                            | {"combine_blocks": cb.combine_blocks.launches})
         hist, stats = svc.snapshot()
         answers = {}
         for mix, specs in mixes.items():
@@ -1665,6 +1791,11 @@ def serving(device, nodes: int, chunk: int, steps: int,
             k5_launches += got["windowed_ratio.masked"]
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
         for i, got in enumerate(per_step):
+            # the combiner folds a step's blocks into its carry through K8
+            k8 = got.pop("combine_blocks")
+            check(k8 == int(cuda and backend == "mapreduce_combiner"),
+                  f"{backend} ingest step {i}: {k8} K8 launches")
+            k8_launches += k8
             k3 = got["segment_hist.packed"]
             if backend == "mapreduce":
                 want = {"count_scatter.count": 1, "count_scatter.scatter": 1,
@@ -1768,9 +1899,10 @@ def serving(device, nodes: int, chunk: int, steps: int,
     log("serve", "the resident snapshot of every backend equals the "
                  "streaming engine and the one-shot counting run; every "
                  "ingest step launched K6 twice a node, every B result K7 "
-                 f"once ({k7_launches} in all), every batch launched K5 "
+                 f"once ({k7_launches} in all), every combiner step K8 "
+                 f"once ({k8_launches} in all), every batch launched K5 "
                  "once and equals its plain version")
-    return k5_at_service_shapes(device, k5_inputs, k5_launches)
+    return k5_at_service_shapes(device, k5_inputs, k5_launches), k8_launches
 
 
 def serve_stages(svc, cfg, chunk: int, mixes: dict, device) -> dict:
@@ -2683,10 +2815,10 @@ def overlap_bench_pair(device) -> dict:
     return out
 
 
-def overlap_small_backends(device) -> None:
+def overlap_small_backends(device) -> int:
     """(d) The runner on streams and the combiner at 2 steps of 8 x 2^20
     records, on and off, equal to their streaming engine, with K4 counted
-    once a step."""
+    once a step and K8 once a combiner step; returns K8's launches."""
     from repro_torch.common.types import ExchangePlan
     from repro_torch.core import malstone_run_streaming
     from repro_torch.core.overlap import OverlapStreamingRunner
@@ -2698,6 +2830,8 @@ def overlap_small_backends(device) -> None:
     plan = ExchangePlan(histogram_impl="kernel")
     seed = make_seed_streaming(1, cfg, num_chunks, OVERLAP_CHUNK,
                                device=device)
+    cb = k8_module()
+    k8_launches = 0
     for backend in ("streams", "mapreduce_combiner"):
         runner = OverlapStreamingRunner(
             seed, cfg, nodes=NODES, num_chunks=num_chunks,
@@ -2713,17 +2847,24 @@ def overlap_small_backends(device) -> None:
             name = f"{backend} overlap={'on' if ov else 'off'}"
             sync(device)
             reset_launch_counts()
+            cb.combine_blocks.launches = 0
             got, got_stats = runner.run_result("B", overlap=ov)
             sync(device)
             check(launch_counts() == want_launches,
                   f"{name}: launches {launch_counts()}, expected "
                   f"{want_launches}")
+            k8 = cb.combine_blocks.launches
+            check(k8 == (OVERLAP_SMALL_STEPS if backend == "mapreduce_combiner"
+                         and device.type == "cuda" else 0),
+                  f"{name}: {k8} K8 launches")
+            k8_launches += k8
             same_result(name, got, want, got_stats, want_stats)
             ms = time_ms(lambda: runner.run_result("B", overlap=ov), device,
                          iters=1, warmup=0)
             log("overlap", f"{name}: equals its streaming engine at "
                            f"{OVERLAP_SMALL_STEPS} steps; launches "
-                           f"{want_launches}; {ms:.3f} ms")
+                           f"{want_launches}, K8 {k8}; {ms:.3f} ms")
+    return k8_launches
 
 
 def overlap(device) -> dict:
@@ -2733,7 +2874,7 @@ def overlap(device) -> dict:
     out = overlap_runner(device)
     out["gate"] = overlap_gate(device)
     out["bench"] = overlap_bench_pair(device)
-    overlap_small_backends(device)
+    out["k8_launches"] = overlap_small_backends(device)
     log("overlap", f"phase 9 took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -5546,11 +5687,13 @@ def main() -> int:
         mp = main_path(device, NODES, RPS)
         kernels = kernels_at_main_shapes(device, mp)
         del mp["log"], mp["ordered"]
-        kernels.append(other_backends(device, NODES, RPS))
+        k4, k8 = other_backends(device, NODES, RPS)
+        kernels.append(k4)
         card_equals_cpu(device, NODES, EQ_RPS)
         k5_edge_cases(device)
-        kernels.append(serving(device, NODES, SERVE_CHUNK, SERVE_STEPS,
-                               SERVE_SMALL_STEPS))
+        k5, k8["serve_launches"] = serving(device, NODES, SERVE_CHUNK,
+                                           SERVE_STEPS, SERVE_SMALL_STEPS)
+        kernels.append(k5)
         t8 = time.perf_counter()
         edge = k6_k7_edge_cases(device)
         kernels += bench_kernel_pairs(device, edge, mp)
@@ -5560,6 +5703,7 @@ def main() -> int:
         for row in kernels:
             if row["name"] in ov["launches"]:
                 row["overlap_launches"] = ov["launches"][row["name"]]
+        k8["overlap_launches"] = ov["k8_launches"]
         res = resumable(device)
         for row in kernels:
             row["resume_launches"] = (res["launches"][row["name"]]
@@ -5586,7 +5730,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log("done", f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    # K8's row joins last: the later phases read launch_counts(), which
+    # has no entry for it
+    print(json.dumps({"kernels": kernels + [k8]}))
     print(json.dumps({"sanitizer": static["sanitizer"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

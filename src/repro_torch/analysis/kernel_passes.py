@@ -1,4 +1,4 @@
-"""Kernel passes: launch-geometry invariants of the seven CUDA kernels.
+"""Kernel passes: launch-geometry invariants of the eight CUDA kernels.
 
 Counterpart of ``repro/analysis/kernel_passes.py``. There, PK001-PK003
 read each Pallas call's grid and BlockSpecs; here the same questions are
@@ -48,7 +48,7 @@ from repro_torch.kernels._launch import H100_SMS
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "kernels" / "csrc"
 _KERNEL_PACKAGES = ("segment_hist", "count_scatter", "powerlaw_sample",
-                    "windowed_ratio")
+                    "windowed_ratio", "combine_blocks")
 INDEX_LIMITS = {"int32": 2**31 - 1, "uint32": 2**32 - 1, "int64": 2**63 - 1}
 
 _CONSTEXPR = re.compile(r"constexpr\s+(?:int|unsigned|long long)\s+(\w+)\s*"
@@ -140,7 +140,7 @@ def read_sources(csrc=CSRC) -> dict:
 
 
 def kernel_analysis_cases() -> list:
-    """All ``analysis_cases()`` of the four kernel packages: dicts of
+    """All ``analysis_cases()`` of the five kernel packages: dicts of
     ``name``, ``source`` (the ``.cu`` file's stem), ``shape``, ``plan``
     (``sm_count -> [Launch]``), ``run`` (``device ->`` one wrapper call),
     ``index_types`` and ``static_smem``."""
@@ -281,6 +281,7 @@ def check_case(case: dict, sources: Optional[dict] = None) -> list:
 def card_attributes(source: str) -> dict:
     """What the card reports for each kernel of ``source`` (its library's
     ``kernel_attributes``: static shared bytes, registers, largest block)."""
+    from repro_torch.kernels.combine_blocks import ops as cb_ops
     from repro_torch.kernels.count_scatter import ops as cs_ops
     from repro_torch.kernels.powerlaw_sample import ops as ps_ops
     from repro_torch.kernels.segment_hist import ops as sh_ops
@@ -288,6 +289,8 @@ def card_attributes(source: str) -> dict:
 
     if source == "count_scatter":
         return cs_ops.attributes()
+    if source == "combine_blocks":
+        return cb_ops.attributes()
     if source == "powerlaw_sample":
         return ps_ops.attributes()
     if source.startswith("segment_hist"):
@@ -416,7 +419,7 @@ def compare_with_card(case: dict, records: list, attrs: dict,
 
 @register_pass("launch-geometry", "kernels", ("KG001", "KG002", "KG003"),
                doc="grid, block, index-type and shared-memory invariants of "
-                   "the seven CUDA kernels' launch plans")
+                   "the eight CUDA kernels' launch plans")
 def kernels_pass(ctx: AnalysisContext) -> list:
     sources = read_sources()
     findings = []

@@ -28,7 +28,7 @@ RULES = {
              "across a fold or differs from its declared dtype (a silent "
              "promotion of the carry)",
     "DR004": "host syncs over the budget the target declares",
-    # kernel passes (launch plans of the seven CUDA kernels, no launch)
+    # kernel passes (launch plans of the eight CUDA kernels, no launch)
     "KG001": "grid or block the launch cannot take, or a tile grid that "
              "does not cover every record or site",
     "KG002": "element offset the kernel forms past the index type it uses "

@@ -14,7 +14,9 @@ Three exchanges ship every record to its owner, all lossless:
   next round (the fallback for workloads the word cannot represent).
 
 ``mapreduce_combiner_histogram`` is MapReduce with a combiner: each node
-pre-reduces its records and only strided histogram blocks are shuffled.
+pre-reduces its records and only strided histogram blocks are shuffled;
+one process exchanges and sums them in one pass (K8, ``kernels/
+combine_blocks``).
 
 A process's nodes are axis 0 of every tensor (``repro_torch.common.
 nodes``): one tensor op or one kernel launch serves all of them, the
@@ -55,6 +57,10 @@ from repro_torch.common.types import (
     unpack_site_week_mark,
 )
 from repro_torch.core.spm import site_week_histogram
+from repro_torch.kernels.combine_blocks import (
+    combine_blocks,
+    combine_blocks_plain,
+)
 from repro_torch.kernels.count_scatter import count_scatter, count_scatter_ref
 
 # Bytes one bucket slot occupies on the wire per shuffle round.
@@ -418,7 +424,8 @@ def mapreduce_histogram(log: EventLog, num_sites: int,
 def mapreduce_combiner_histogram(log: EventLog, num_sites: int,
                                  num_weeks: int = WEEKS_PER_YEAR,
                                  histogram_fn=site_week_histogram,
-                                 group: Optional[nodes.NodeGroup] = None
+                                 group: Optional[nodes.NodeGroup] = None,
+                                 carry: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """MapReduce with a combiner (JAX ``mapreduce_combiner_histogram``):
     each node pre-reduces its records into a local ``[S, W, 2]``
@@ -426,7 +433,12 @@ def mapreduce_combiner_histogram(log: EventLog, num_sites: int,
 
     Returns the owned strided blocks ``[P_local, num_sites // P, W, 2]``
     (row i of node d is site ``i * P + d``), equal to
-    ``mapreduce_histogram``'s.
+    ``mapreduce_histogram``'s, added into ``carry`` in place where one is
+    given (int32 sums wrap). One process exchanges the blocks with
+    ``combine_blocks`` (K8 on the card, the torch path on the CPU); a gang
+    with the torch path over its gloo collectives. The exchange is a
+    ``combiner.blocks`` span; ``combiner.block_bytes`` counts the bytes of
+    the blocks that leave their node.
     """
     rows = log.site_id.shape[0]
     group = nodes.group_of_rows(group, rows)
@@ -436,11 +448,15 @@ def mapreduce_combiner_histogram(log: EventLog, num_sites: int,
                          f"count ({p}); pad it")
     s_local = num_sites // p
     local = histogram_fn(log, num_sites, num_weeks)   # [P_local, S, W, 2]
-    # regroup so destination d's strided sites (j % P == d) form a block:
-    # [P_local (src), P_dst, S/P, W, 2], block (d, i) = site i * P + d
-    blocks = local.reshape(rows, s_local, p, num_weeks, 2).transpose(1, 2)
-    # block d of every node -> node d, then the sum over the senders
-    return nodes.psum(nodes.all_to_all(blocks, group), dim=1)
+    if carry is None:
+        carry = torch.zeros(rows, s_local, num_weeks, 2, dtype=torch.int32,
+                            device=local.device)
+    trace.count("combiner.block_bytes",
+                rows * (p - 1) * s_local * num_weeks * 2 * 4)
+    with trace.span("combiner.blocks"):
+        if group.distributed:
+            return combine_blocks_plain(local, carry, group)
+        return combine_blocks(local.contiguous(), carry)
 
 
 def shuffle_stats(stats: ShuffleStats,

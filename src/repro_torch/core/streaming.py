@@ -14,7 +14,7 @@ dataflow:
   each node's owned strided ``[P, s_pad/P, W, 2]`` block, with per-node
   ``[P]`` ``ShuffleStats`` merged chunk by chunk (``merge_stats``);
 - ``mapreduce_combiner``: the combiner's histogram-block exchange of the
-  chunk, into the same owned blocks.
+  chunk, added into the same owned blocks in place (K8 in one process).
 
 Every function takes a ``group`` (``repro_torch.common.nodes.NodeGroup``;
 default: one process with every node). In a gang a process folds the
@@ -135,10 +135,9 @@ def _accumulate_chunk(carry, chunk: EventLog, backend: str, s_pad: int,
             owned += inc
             return (owned, merge_stats(stats, chunk_stats))
         if backend == "mapreduce_combiner":
-            carry += mapreduce_combiner_histogram(chunk, s_pad, num_weeks,
-                                                  histogram_fn=hist_fn,
-                                                  group=group)
-            return carry
+            return mapreduce_combiner_histogram(chunk, s_pad, num_weeks,
+                                                histogram_fn=hist_fn,
+                                                group=group, carry=carry)
     raise ValueError(f"unknown streaming backend {backend!r}")
 
 

@@ -211,7 +211,9 @@ class TestKernelPasses:
         assert set(SOURCES) == {"count_scatter", "segment_hist",
                                 "segment_hist_packed",
                                 "windowed_ratio_masked", "powerlaw_sample",
-                                "windowed_ratio"}
+                                "windowed_ratio", "combine_blocks"}
+        assert SOURCES["combine_blocks"].bounds[
+            "combine_blocks_kernel"] == (256, 4)
         assert SOURCES["windowed_ratio_masked"].bounds[
             "masked_window_ratio_kernel"] == (256, 3)
         assert SOURCES["powerlaw_sample"].bounds["sample_kernel"] == (512, 3)
@@ -366,7 +368,9 @@ class TestKernelPasses:
             "powerlaw_sample/join_direct_limit",
             "windowed_ratio/nodedoctor", "windowed_ratio/masked_two_chunks",
             "windowed_ratio/most_sites",
-            "windowed_ratio/masked_most_sites"}
+            "windowed_ratio/masked_most_sites",
+            "combine_blocks/main_path", "combine_blocks/odd_weeks",
+            "combine_blocks/off_boundary", "combine_blocks/widest_node"}
 
     def test_main_path_cases_launch_the_main_paths_shapes(self):
         cases = {c["name"]: c for c in kp.kernel_analysis_cases()}

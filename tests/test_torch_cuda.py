@@ -1904,3 +1904,71 @@ def test_ring_collective_of_a_cuda_tensor_through_the_host(cuda_device,
         assert res["ppermute_partial"] == partial[2 * r:2 * r + 2].tolist()
         assert res["digest"] == mesh.checksum([out])
         assert res["clock"]["d2h_ms"] > 0 and res["clock"]["bytes"] > 0
+
+
+# ------------------------------------------- K8, the combiner's exchange
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,s_local,w,skew", [
+    (8, 15_000, 52, 0),      # the benchmark cell's step: 16-byte vectors
+    (4, 1_001, 51, 0),       # odd weeks: 8-byte vectors
+    (3, 700, 52, 1),         # both one int past a 16-byte boundary: 4 bytes
+    (8, 3, 1, 2),            # one week, 8 bytes past it: 8-byte vectors
+    (1, 5, 3, 0),            # one node
+])
+def test_combine_blocks_equals_plain(cuda_device, p, s_local, w, skew):
+    """K8 over every int32 value (its sums wrap past 2^31) equals its
+    plain version, the torch path, bit for bit; one launch a call."""
+    from repro_torch.kernels.combine_blocks import ops as cb
+
+    g = torch.Generator(device=cuda_device).manual_seed(p * 1000 + w)
+
+    def ints(n):
+        buf = torch.randint(-2**31, 2**31 - 1, (n + skew,), generator=g,
+                            dtype=torch.int32, device=cuda_device)
+        return buf[skew:]
+
+    local = ints(p * p * s_local * w * 2).view(p, p * s_local, w, 2)
+    carry = ints(p * s_local * w * 2).view(p, s_local, w, 2)
+    want = cb.combine_blocks_plain(local.cpu(), carry.cpu())
+    assert cb.vector_ints(local.data_ptr(), carry.data_ptr(), w) == (
+        {0: 4 if w % 2 == 0 else 2, 1: 1, 2: 2}[skew])
+    before = cb.combine_blocks.launches
+    out = cb.combine_blocks(local, carry)
+    torch.cuda.synchronize(cuda_device)
+    assert out is carry and cb.combine_blocks.launches == before + 1
+    assert torch.equal(carry.cpu(), want)
+    assert int(local.cpu().to(torch.int64).abs().max()) > 2**30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes_", (4, 8))
+def test_combiner_folds_through_k8_on_the_card(cuda_device, nodes_):
+    """The streaming engine's combiner on the card over a log made there:
+    one K8 launch and one K4 launch a fold, the answer equal bit for bit
+    to the CPU's combiner (the torch path) over the same records, and to
+    sphere's on the card."""
+    from repro_torch.kernels.combine_blocks import ops as cb
+
+    cfg = MalGenConfig(num_sites=1001, num_entities=5000)
+    steps, chunk = 3, 1 << 14
+    seed = make_seed(11, cfg, nodes_ * steps * chunk, device=cuda_device)
+    log = generate_shards_device(seed, cfg, nodes_, steps * chunk,
+                                 device=cuda_device).map(
+        lambda c: c.reshape(-1))
+    want = run(log.to("cpu"), 1001, nodes=nodes_, engine="streaming",
+               chunk_records=chunk, backend="mapreduce_combiner",
+               device="cpu")
+    reset_launch_counts()
+    before = cb.combine_blocks.launches
+    got = run(log, 1001, nodes=nodes_, engine="streaming",
+              chunk_records=chunk, backend="mapreduce_combiner",
+              device=cuda_device)
+    assert cb.combine_blocks.launches - before == steps
+    assert launch_counts()["segment_hist"] == steps
+    sphere = run(log, 1001, nodes=nodes_, engine="streaming",
+                 chunk_records=chunk, backend="sphere", device=cuda_device)
+    for other in (want, sphere):
+        assert torch.equal(got.total.cpu(), other.total.cpu())
+        assert torch.equal(got.marked.cpu(), other.marked.cpu())
+        assert torch.equal(got.rho.cpu().view(torch.int32),
+                           other.rho.cpu().view(torch.int32))

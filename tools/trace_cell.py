@@ -333,6 +333,28 @@ def _copy(view: dict):
             "bytes": view["counters"].get("query.copy_bytes", 0) / n}
 
 
+def _combiner_device(view: dict):
+    paths, steps = view.get("paths"), _steps(view)
+    if not paths or not steps or not _named(view, "combiner.blocks"):
+        return None
+    ops = sum(n for p, n in paths.get("device_ops_by_span_path", {}).items()
+              if "combiner.blocks" in p.split("/"))
+    if not ops:
+        return None       # nothing ran on a device (a CPU run)
+    dev = paths["device_s_by_span_path"]
+    s = sum(v for p, v in dev.items() if "combiner.blocks" in p.split("/"))
+    return {"value": 1e3 * s / steps, "steps": steps,
+            "launches": ops / steps}
+
+
+def _combiner_bytes(view: dict):
+    nbytes = view["counters"].get("combiner.block_bytes")
+    if not nbytes or not view.get("records"):
+        return None
+    return {"value": nbytes / view["records"], "bytes": nbytes,
+            "folds": len(_named(view, "combiner.blocks"))}
+
+
 # name -> (unit, reader of the view): the per-layer readings of the port's
 # spans and counters; a reader returns None where it finds nothing
 SPAN_METRICS = {
@@ -349,6 +371,10 @@ SPAN_METRICS = {
     # where a batch waits for the ingest step in flight: the masks' upload
     # (pageable, so the copy waits for the stream's queue) inside submit
     "query.upload_ms.p95": ("ms", _upload),
+    # the combiner's block exchange (K8 on one card): its device time a
+    # step, and the bytes of blocks that leave their node a record folded
+    "combiner.blocks_device_ms_per_step": ("ms/step", _combiner_device),
+    "combiner.block_bytes_per_record": ("bytes", _combiner_bytes),
 }
 
 
@@ -371,13 +397,14 @@ def host_self_s(spans: list, window=None) -> dict:
 
 
 def span_metrics(spans: list, counters: dict, window=None,
-                 paths=None) -> dict:
+                 paths=None, records=None) -> dict:
     """Every reading of :data:`SPAN_METRICS` that finds something to read:
     ``spans`` and ``counters`` as ``repro_torch.common.trace.stop()`` gives
     them, ``window`` ``(w0, w1)`` (None: every span), ``paths``
-    ``by_span_path``'s result (None: an untraced run)."""
+    ``by_span_path``'s result (None: an untraced run), ``records`` the
+    records the window folded (None: not known)."""
     view = {"spans": spans, "counters": counters, "window": window,
-            "paths": paths}
+            "paths": paths, "records": records}
     out = {}
     for name, (unit, read) in SPAN_METRICS.items():
         value = read(view)
@@ -452,7 +479,8 @@ def program_view(run, spans, counters, raw) -> dict:
         out.update(paths)
         if any(s.name == "run.job" for s in spans):
             out["idle_s_by_step"] = idle_s_by_step(gaps, spans)
-    out["span_metrics"] = span_metrics(spans, counters, window, paths)
+    out["span_metrics"] = span_metrics(spans, counters, window, paths,
+                                       run.counters.get("records"))
     out["host_self_s"] = host_self_s(spans, window)
     return out
 
