@@ -24,7 +24,9 @@
    records, the counting exchange at capacity factor 2.0 and the fused
    reducer. Every kernel's launch counter must rise in that run: K1-K3,
    K6 (the generated records' sites: one launch a node and one for the
-   marked stream) and K7 (the MalStone B finalize, once). Then timed runs,
+   marked stream) and K7 (the MalStone B finalize, once), and K9 (the
+   shuffle round's words, counted in ``ship_buckets.launches``, outside
+   ``launch_counts()``) once a round, as K3. Then timed runs,
    a per-stage breakdown (with the part of generation that is
    ``sample_sites``), a profile, peak memory and the checks: lossless
    shuffle, byte accounting, and the histogram against a direct
@@ -35,7 +37,14 @@
    K3 also over the same records with sites drawn uniformly; K1 and K2
    also beside their first design (``tools/first_designs.py``, a tile of
    1,024 records) on the same records, K2 also as a CUDA graph (no host
-   work) and cold (after its inputs were evicted from the L2).
+   work) and cold (after its inputs were evicted from the L2). Then K9
+   on the main path's ordered words, bit-equal to its plain version (the
+   torch path: slot index, mask, int64 gather, ``where``, transposed
+   copy) at every round of the main path's capacity and at the
+   benchmark's mapreduce step (capacity factor 4.0, C = 2^22), timed
+   with its wrapper and as a CUDA graph beside the torch path, against
+   its bound 4 P P C + 4 (live words) bytes at 3.35 TB/s, with the bytes
+   each allocates beyond its output.
 5. Drives the other backends at the same width, each with the launch
    counts set to 0 just before it and read just after: ``streams``,
    ``sphere`` and ``mapreduce_combiner`` over the same generated records,
@@ -46,7 +55,8 @@
    exactly its kernels: K4 (and K1, K2 a round for columns), K6 nodes + 1
    times where it generates, K7 once for statistic B, K8 (the combiner's
    block exchange, counted in ``combine_blocks.launches``, outside
-   ``launch_counts()``) once for the combiner and never for the others.
+   ``launch_counts()``) once for the combiner and never for the others,
+   K9 never.
    Prints each backend's stage times, records/s, peak memory and profile,
    then checks and times K4 at these shapes as in 4, over sites drawn
    uniformly and at a service step's 2^20 records a node. Then K8: on
@@ -72,7 +82,8 @@
    streaming engine (rho bits of A, B and B-fixed, every ShuffleStats
    field) and the one-shot counting run over ``generate_chunked_log``;
    each ingest step launches K6 twice a node (a chunk's marked and
-   unmarked draws) and K8 once on the combiner (never elsewhere), and
+   unmarked draws), K8 once on the combiner (never elsewhere) and K9
+   once a mapreduce round (as K3; never elsewhere), and
    each B result K7 once;
    the ``mixed`` and ``growing`` query batches launch K5 once each, equal
    its plain version, and the 52 growing B answers equal ``malstone_b``'s
@@ -113,8 +124,8 @@
    records, mapreduce counting at capacity factor 2.0, statistic B, with
    overlap on and off equals ``malstone_run_streaming(overlap=None)``
    (histogram, rho bits, every ShuffleStats field), each run launching
-   exactly K6 twice a node a step, K1 and K2 once a step, K3 once a round
-   and K7 once (counts set to 0 just before and read just after); a
+   exactly K6 twice a node a step, K1 and K2 once a step, K3 and K9 once
+   a round and K7 once (counts set to 0 just before and read just after); a
    profile shows generation (K6) and the fold (K1-K3) on two streams;
    prints, for the engine, on and off, the medians of interleaved runs,
    records/s, the card's idle share, the time both streams were busy and
@@ -126,13 +137,13 @@
    ``run_scenarios`` at 4,096 records a node (64 chunks of 64 records),
    launches in the path's exact ratios; (d) the runner on ``streams`` and
    ``mapreduce_combiner`` at 2 steps equal to their streaming engine, K4
-   once a step, K8 once a combiner step.
+   once a step, K8 once a combiner step, K9 never.
 10. Resumable runs (``repro_torch.core.resume``) at ``MalGenConfig()``
    widths, 8 nodes x 8 steps of 2^20 records, mapreduce counting at
    capacity factor 2.0, statistic B, in 4 segments of 2 steps: (1) equal
    to ``malstone_run_streaming(overlap=None)`` (histogram, rho bits, every
-   ShuffleStats field) with exact launches (K6 128, K1 8, K2 8, K3 one a
-   round, K7 1, no K4 or K5; counts set to 0 just before and read just
+   ShuffleStats field) with exact launches (K6 128, K1 8, K2 8, K3 and K9
+   one a round, K7 1, no K4 or K5; counts set to 0 just before and read just
    after); (2) killed (raised) at the segment 2 boundary and inside step
    2's checkpoint write, each resumed equal, the torn step swept, and a
    complete checkpoint restored; (3) the launcher in a child process
@@ -162,8 +173,9 @@
    ShuffleStats equal this process's one-process engine over the same
    seed, and every rank launches exactly its nodes' kernels (K6 twice a
    local node a step, K1 and K2 once a step, K3 once a round or K4 once a
-   step, K7 once; counts set to 0 by each rank just before its run and
-   read just after). Prints the run ms by N (rank 0's CUDA events after a
+   step, K7 once, and K9, in the senders' layout, once a round, as K3;
+   counts set to 0 by each rank just before its run and read just
+   after). Prints the run ms by N (rank 0's CUDA events after a
    barrier; the median of the turns), the exchange's bytes handed to gloo
    and its host-clock parts (waiting for the card, the copy to pinned
    memory, gloo, the copy back), peak memory a rank and rank 0's idle
@@ -523,10 +535,19 @@ KERNEL_INFO = {
         "src/repro_torch/kernels/csrc/combine_blocks.cu",
         "none (src/repro/core/backends/mapreduce.py:"
         "mapreduce_combiner_histogram)"),
+    # K9 replaces no TPU kernel: the JAX package fills the shuffle's
+    # buckets with XLA's gather and ships them with all_to_all
+    "ship_buckets": (
+        "src/repro_torch/kernels/csrc/ship_buckets.cu",
+        "none (src/repro/core/backends/mapreduce.py:"
+        "_word_shuffle_histogram)"),
 }
 # K8 at the benchmark's combiner step: 8 nodes' [8, 120,000, 52, 2] local
 # histograms into the [8, 15,000, 52, 2] owned carry (P, S/P, W)
 K8_CELL = (8, 15_000, 52)
+# K9 at the benchmark's mapreduce step: capacity factor 4.0, so 2^22-slot
+# buckets of a node's 2^23 words
+K9_CAPACITY_FACTOR = 4.0
 # the kernels of the counting main path (phase 3): K6 samples the sites of
 # the generated records, K7 finalizes MalStone B
 MAIN_KERNELS = ("count_scatter.count", "count_scatter.scatter",
@@ -653,6 +674,24 @@ def k8_module():
     from repro_torch.kernels.combine_blocks import ops
 
     return ops
+
+
+def k9_module():
+    """K9's wrapper module. Its launch counter, ``ship_buckets.launches``,
+    is outside ``launch_counts()``: a phase that runs the record shuffle
+    sets it to 0 just before and reads it just after."""
+    from repro_torch.kernels.ship_buckets import ops
+
+    return ops
+
+
+def check_k9(name: str, k9: int, launches: dict, device) -> None:
+    """One process's card path writes every shuffle round's words with one
+    K9 launch, and reduces them with one K3 launch: K9's launches equal
+    K3's (0 where no record is shuffled, and on the CPU)."""
+    want = launches["segment_hist.packed"] if device.type == "cuda" else 0
+    check(k9 == want, f"{name}: {k9} K9 launches, expected {want} (one a "
+                      f"shuffle round)")
 
 
 # ------------------------------------------------------------- phase 1
@@ -993,9 +1032,13 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
+    k9 = k9_module()
+    k9.ship_buckets.launches = 0
     result, stats = drive()
     sync(device)
     launches = launch_counts()
+    k9_launches = k9.ship_buckets.launches
+    check_k9("main path", k9_launches, launches, device)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     log("main", f"{total:,} records on {nodes} nodes, {cfg.num_sites:,} "
@@ -1085,7 +1128,8 @@ def main_path(device, nodes: int, rps: int, runs: int = 3) -> dict:
     prof = {}
     if device.type == "cuda":
         prof = profile(drive, device)
-    return dict(seed=seed, cfg=cfg, launches=launches, log=main_log,
+    return dict(seed=seed, cfg=cfg, launches=launches,
+                k9_launches=k9_launches, log=main_log,
                 ordered=ordered, capacity=capacity, run_ms=samples,
                 records_per_s=total / (med / 1e3), stage_ms=stage,
                 peak_bytes=peak, rounds=stats.rounds, profile=prof)
@@ -1320,7 +1364,7 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                        device=device, return_shuffle_stats=True)
         return run(seed, backend=path, statistic=stat, **gen)
 
-    cb = k8_module()
+    cb, k9 = k8_module(), k9_module()
     k4_launches, k8_launches = {}, {}
     for path in ("streams", "sphere", "mapreduce_combiner",
                  "mapreduce+columns"):
@@ -1333,10 +1377,14 @@ def other_backends(device, nodes: int, rps: int, runs: int = 3):
                 base = torch.cuda.memory_allocated(device)
             reset_launch_counts()
             cb.combine_blocks.launches = 0
+            k9.ship_buckets.launches = 0
             result, stats = drive(path, stat)
             sync(device)
             launches = launch_counts()
             k8 = cb.combine_blocks.launches
+            # no backend here ships words: the columns exchange its columns
+            check(k9.ship_buckets.launches == 0,
+                  f"{path} {stat}: {k9.ship_buckets.launches} K9 launches")
             if cuda:
                 peak = torch.cuda.max_memory_allocated(device)
             ref, ref_stats = want[stat]
@@ -1516,6 +1564,56 @@ def combine_blocks_row(device, launches: int, shape=K8_CELL) -> dict:
         extra_bytes=extra_bytes(kernel, device),
         plain_extra_bytes=extra_bytes(plain, device),
         library_extra_bytes=extra_bytes(library, device))
+
+
+def ship_buckets_row(device, mp: dict) -> dict:
+    """K9 on the main path's ordered words (``[8, 2^23]``): at the
+    benchmark's mapreduce step (capacity factor 4.0, C = 2^22) rounds 0
+    and 1 bit-equal to its plain version (the torch path it replaced: the
+    slot index, the mask, the int64 gather, the ``where``, the transposed
+    copy), and every round at the main path's capacity; timed with the
+    wrapper (``ms``) and as a CUDA graph beside the torch path, against
+    its bound 4 P P C + 4 (live words) bytes at 3.35 TB/s, with the bytes
+    each allocates beyond its ``[P, P C]`` output; K9's entry of the
+    kernels line."""
+    from repro_torch.core.backends.mapreduce import static_capacity
+
+    sb = k9_module()
+    words, starts = mp["ordered"]
+    p, n = words.shape
+    cuda = device.type == "cuda"
+    counts = starts[:, 1:] - starts[:, :-1]
+    for capacity in (mp["capacity"], static_capacity(n, p,
+                                                     K9_CAPACITY_FACTOR)):
+        rounds = -(-int(counts.max()) // capacity)
+        for r in range(rounds + 1):
+            before = sb.ship_buckets.launches
+            got = sb.ship_buckets(words, starts, r, capacity)
+            check(sb.ship_buckets.launches - before == int(cuda),
+                  "K9: a call did not launch once")
+            err = exact(f"K9 round {r} of {rounds} at C = {capacity}", got,
+                        sb.ship_buckets_plain(words, starts, r, capacity))
+        check(int(got.count_nonzero()) == 0,
+              f"K9 at C = {capacity}: round {rounds} shipped a word")
+    del got
+    live = int(counts.clamp(max=capacity).sum())
+
+    def kernel():
+        return sb.ship_buckets(words, starts, 0, capacity)
+
+    def plain():
+        return sb.ship_buckets_plain(words, starts, 0, capacity)
+
+    shipped = 4 * p * p * capacity
+    return kernel_row(
+        "ship_buckets", mp["k9_launches"], err,
+        time_ms(kernel, device, 20, 2), time_ms(plain, device, 5, 1), None,
+        shipped + 4 * live, shape=[p, n], capacity=capacity,
+        live_words=live,
+        graph_ms=graph_ms(kernel, device) if cuda else None,
+        plain_graph_ms=graph_ms(plain, device, iters=3) if cuda else None,
+        extra_bytes=extra_bytes(kernel, device) - shipped * cuda,
+        plain_extra_bytes=extra_bytes(plain, device) - shipped * cuda)
 
 
 def backend_stages(path, seed, cfg, flat, nodes, rps, s_pad, capacity,
@@ -1744,7 +1842,8 @@ def serving(device, nodes: int, chunk: int, steps: int,
              for m in ("mixed", "growing")}
     seeds, oneshot = {}, {}
     k5_launches, k5_inputs, k7_launches, k8_launches = 0, None, 0, 0
-    cb = k8_module()
+    k9_launches = 0
+    cb, k9 = k8_module(), k9_module()
     round_bound = shuffle_round_bound(
         chunk, static_capacity(chunk, nodes, CAPACITY_FACTOR))
     for backend, n_steps in (("streams", steps), ("mapreduce", steps),
@@ -1776,10 +1875,12 @@ def serving(device, nodes: int, chunk: int, steps: int,
         for _ in range(n_steps):
             reset_launch_counts()
             cb.combine_blocks.launches = 0
+            k9.ship_buckets.launches = 0
             ingest_ms += timed_samples(lambda: svc.ingest_chunks(1), 1,
                                        device)
             per_step.append(launch_counts()
-                            | {"combine_blocks": cb.combine_blocks.launches})
+                            | {"combine_blocks": cb.combine_blocks.launches,
+                               "ship_buckets": k9.ship_buckets.launches})
         hist, stats = svc.snapshot()
         answers = {}
         for mix, specs in mixes.items():
@@ -1796,6 +1897,10 @@ def serving(device, nodes: int, chunk: int, steps: int,
             check(k8 == int(cuda and backend == "mapreduce_combiner"),
                   f"{backend} ingest step {i}: {k8} K8 launches")
             k8_launches += k8
+            # the record shuffle writes each round's words through K9
+            k9_step = got.pop("ship_buckets")
+            check_k9(f"{backend} ingest step {i}", k9_step, got, device)
+            k9_launches += k9_step
             k3 = got["segment_hist.packed"]
             if backend == "mapreduce":
                 want = {"count_scatter.count": 1, "count_scatter.scatter": 1,
@@ -1900,9 +2005,11 @@ def serving(device, nodes: int, chunk: int, steps: int,
                  "streaming engine and the one-shot counting run; every "
                  "ingest step launched K6 twice a node, every B result K7 "
                  f"once ({k7_launches} in all), every combiner step K8 "
-                 f"once ({k8_launches} in all), every batch launched K5 "
+                 f"once ({k8_launches} in all), every mapreduce round K9 "
+                 f"once ({k9_launches} in all), every batch launched K5 "
                  "once and equals its plain version")
-    return k5_at_service_shapes(device, k5_inputs, k5_launches), k8_launches
+    return (k5_at_service_shapes(device, k5_inputs, k5_launches),
+            k8_launches, k9_launches)
 
 
 def serve_stages(svc, cfg, chunk: int, mixes: dict, device) -> dict:
@@ -2633,11 +2740,15 @@ def overlap_runner(device) -> dict:
 
     sync(device)
     reset_launch_counts()
+    k9 = k9_module()
+    k9.ship_buckets.launches = 0
     want, want_stats = engine()
     sync(device)
     check(launch_counts() == want_launches,
           f"streaming engine: launches {launch_counts()}, expected "
           f"{want_launches}")
+    check_k9("streaming engine", k9.ship_buckets.launches, want_launches,
+             device)
     check(int(want_stats.overflow) == 0 and int(want_stats.sent) == total,
           f"streaming engine: sent {int(want_stats.sent)} of {total}")
     want_hist, _ = streaming_histogram_generate(
@@ -2645,7 +2756,7 @@ def overlap_runner(device) -> dict:
         chunks_per_node=OVERLAP_STEPS, chunk_records=OVERLAP_CHUNK,
         backend="mapreduce", plan=plan)
     out = {"rounds": rounds, "launches": want_launches, "peak_gib": {},
-           "base_gib": {}, "profile": {}}
+           "base_gib": {}, "profile": {}, "k9_launches": 0}
     sync(device)
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
@@ -2669,9 +2780,13 @@ def overlap_runner(device) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
         reset_launch_counts()
+        k9.ship_buckets.launches = 0
         got, got_stats = runner.run_result("B", overlap=ov)
         sync(device)
         got_launches = launch_counts()
+        # K9 on the fold's stream, once a round
+        check_k9(name, k9.ship_buckets.launches, got_launches, device)
+        out["k9_launches"] += k9.ship_buckets.launches
         out["peak_gib"][name] = (torch.cuda.max_memory_allocated(device)
                                  / 2**30)
         out["base_gib"][name] = base / 2**30
@@ -2830,7 +2945,7 @@ def overlap_small_backends(device) -> int:
     plan = ExchangePlan(histogram_impl="kernel")
     seed = make_seed_streaming(1, cfg, num_chunks, OVERLAP_CHUNK,
                                device=device)
-    cb = k8_module()
+    cb, k9 = k8_module(), k9_module()
     k8_launches = 0
     for backend in ("streams", "mapreduce_combiner"):
         runner = OverlapStreamingRunner(
@@ -2848,8 +2963,11 @@ def overlap_small_backends(device) -> int:
             sync(device)
             reset_launch_counts()
             cb.combine_blocks.launches = 0
+            k9.ship_buckets.launches = 0
             got, got_stats = runner.run_result("B", overlap=ov)
             sync(device)
+            check(k9.ship_buckets.launches == 0,
+                  f"{name}: {k9.ship_buckets.launches} K9 launches")
             check(launch_counts() == want_launches,
                   f"{name}: launches {launch_counts()}, expected "
                   f"{want_launches}")
@@ -3332,12 +3450,16 @@ def resumable(device) -> dict:
     # (1) the path, counted
     sync(device)
     reset_launch_counts()
+    k9 = k9_module()
+    k9.ship_buckets.launches = 0
     out = runner.run()
     sync(device)
     launches = launch_counts()
     check(launches == want_launches,
           f"resumable mapreduce: launches {launches}, expected "
           f"{want_launches}")
+    k9_launches = k9.ship_buckets.launches
+    check_k9("resumable mapreduce", k9_launches, launches, device)
     rep = out.report
     check(rep.segments_run == rep.segments_total == 4
           and rep.chunks_processed == num_chunks
@@ -3349,7 +3471,8 @@ def resumable(device) -> dict:
                   f"streaming engine (histogram, rho bits, ShuffleStats "
                   f"{[int(x) for x in out.shuffle_stats]}); launches "
                   + json.dumps(launches) + f"; rounds a step {rounds}")
-    result = {"launches": launches, "rounds": rounds}
+    result = {"launches": launches, "rounds": rounds,
+              "k9_launches": k9_launches}
 
     root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
     try:
@@ -3506,6 +3629,10 @@ def gang(device, width: str = "full") -> dict:
                         check(got_l == launches,
                               f"gang of {n}, rank {r}, {name}: launches "
                               f"{got_l}, expected {launches}")
+                        # K9, outside launch_counts(): once a round
+                        got_l["k9"] = int(got[key + "launches_k9"])
+                        check_k9(f"gang of {n}, rank {r}, {name}",
+                                 got_l["k9"], got_l, device)
                         if r == 0:
                             counted = got_l
                     r0 = ranks[0]
@@ -5686,13 +5813,14 @@ def main() -> int:
         kernel_edge_cases(device)
         mp = main_path(device, NODES, RPS)
         kernels = kernels_at_main_shapes(device, mp)
+        k9 = ship_buckets_row(device, mp)
         del mp["log"], mp["ordered"]
         k4, k8 = other_backends(device, NODES, RPS)
         kernels.append(k4)
         card_equals_cpu(device, NODES, EQ_RPS)
         k5_edge_cases(device)
-        k5, k8["serve_launches"] = serving(device, NODES, SERVE_CHUNK,
-                                           SERVE_STEPS, SERVE_SMALL_STEPS)
+        k5, k8["serve_launches"], k9["serve_launches"] = serving(
+            device, NODES, SERVE_CHUNK, SERVE_STEPS, SERVE_SMALL_STEPS)
         kernels.append(k5)
         t8 = time.perf_counter()
         edge = k6_k7_edge_cases(device)
@@ -5704,7 +5832,9 @@ def main() -> int:
             if row["name"] in ov["launches"]:
                 row["overlap_launches"] = ov["launches"][row["name"]]
         k8["overlap_launches"] = ov["k8_launches"]
+        k9["overlap_launches"] = ov["k9_launches"]
         res = resumable(device)
+        k9["resume_launches"] = res["k9_launches"]
         for row in kernels:
             row["resume_launches"] = (res["launches"][row["name"]]
                                       + res["streams"]["launches"][
@@ -5730,9 +5860,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log("done", f"{time.perf_counter() - t_start:.1f} s")
-    # K8's row joins last: the later phases read launch_counts(), which
-    # has no entry for it
-    print(json.dumps({"kernels": kernels + [k8]}))
+    # K8's and K9's rows join last: the later phases read launch_counts(),
+    # which has no entry for them
+    print(json.dumps({"kernels": kernels + [k8, k9]}))
     print(json.dumps({"sanitizer": static["sanitizer"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

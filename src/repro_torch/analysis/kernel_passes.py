@@ -48,7 +48,7 @@ from repro_torch.kernels._launch import H100_SMS
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "kernels" / "csrc"
 _KERNEL_PACKAGES = ("segment_hist", "count_scatter", "powerlaw_sample",
-                    "windowed_ratio", "combine_blocks")
+                    "windowed_ratio", "combine_blocks", "ship_buckets")
 INDEX_LIMITS = {"int32": 2**31 - 1, "uint32": 2**32 - 1, "int64": 2**63 - 1}
 
 _CONSTEXPR = re.compile(r"constexpr\s+(?:int|unsigned|long long)\s+(\w+)\s*"
@@ -140,7 +140,7 @@ def read_sources(csrc=CSRC) -> dict:
 
 
 def kernel_analysis_cases() -> list:
-    """All ``analysis_cases()`` of the five kernel packages: dicts of
+    """All ``analysis_cases()`` of the six kernel packages: dicts of
     ``name``, ``source`` (the ``.cu`` file's stem), ``shape``, ``plan``
     (``sm_count -> [Launch]``), ``run`` (``device ->`` one wrapper call),
     ``index_types`` and ``static_smem``."""
@@ -285,12 +285,15 @@ def card_attributes(source: str) -> dict:
     from repro_torch.kernels.count_scatter import ops as cs_ops
     from repro_torch.kernels.powerlaw_sample import ops as ps_ops
     from repro_torch.kernels.segment_hist import ops as sh_ops
+    from repro_torch.kernels.ship_buckets import ops as sb_ops
     from repro_torch.kernels.windowed_ratio import ops as wr_ops
 
     if source == "count_scatter":
         return cs_ops.attributes()
     if source == "combine_blocks":
         return cb_ops.attributes()
+    if source == "ship_buckets":
+        return sb_ops.attributes()
     if source == "powerlaw_sample":
         return ps_ops.attributes()
     if source.startswith("segment_hist"):

@@ -13,6 +13,10 @@ Three exchanges ship every record to its owner, all lossless:
   plus validity, and keeps the rest in a same-shape residual log for the
   next round (the fallback for workloads the word cannot represent).
 
+A round's shipped words are written in one pass (K9, ``kernels/
+ship_buckets``); in a gang, in the senders' layout the ``all_to_all``
+ships.
+
 ``mapreduce_combiner_histogram`` is MapReduce with a combiner: each node
 pre-reduces its records and only strided histogram blocks are shuffled;
 one process exchanges and sums them in one pass (K8, ``kernels/
@@ -62,6 +66,7 @@ from repro_torch.kernels.combine_blocks import (
     combine_blocks_plain,
 )
 from repro_torch.kernels.count_scatter import count_scatter, count_scatter_ref
+from repro_torch.kernels.ship_buckets import ship_buckets
 
 # Bytes one bucket slot occupies on the wire per shuffle round.
 PACKED_SLOT_BYTES = 4        # one word
@@ -186,21 +191,16 @@ def ship_round(words_sorted: torch.Tensor, starts: torch.Tensor,
                group: Optional[nodes.NodeGroup] = None):
     """One round's exchange: every node fills a ``[P, C]`` bucket per
     destination with window ``[r*C, (r+1)*C)`` of that destination's
-    segment (zero words past its end), and the ``all_to_all`` delivers
-    them. Returns ``(shipped [P_local, P*C] words per receiver, live
-    [P_local, P, C] slot occupancy per sender)``."""
-    rows, n = words_sorted.shape
-    p = nodes.group_of_rows(group, rows).nodes
-    lane = torch.arange(capacity, dtype=torch.int32,
-                        device=words_sorted.device)
-    idx = (starts[:, :-1] + round_index * capacity).unsqueeze(-1) + lane
-    live = idx < starts[:, 1:].unsqueeze(-1)
-    taken = words_sorted.gather(
-        1, idx.clamp_(max=max(n - 1, 0)).reshape(rows, -1).to(torch.int64))
-    buf = torch.where(live, taken.reshape(live.shape),
-                      torch.zeros((), dtype=torch.int32,
-                                  device=words_sorted.device))
-    return nodes.all_to_all(buf, group).reshape(rows, p * capacity), live
+    segment (zero words past its end), and each receiver gets bucket d of
+    every sender (``ship_buckets``: one K9 launch on the card, the torch
+    path on the CPU; a gang's buckets go over gloo). Returns ``(shipped
+    [P_local, P*C] words per receiver, sent [P_local] int32: the live
+    slots each sender shipped)``."""
+    counts = starts[:, 1:] - starts[:, :-1]
+    sent = (counts - round_index * capacity).clamp_(0, capacity).sum(
+        dim=-1, dtype=torch.int32)
+    return ship_buckets(words_sorted, starts, round_index, capacity,
+                        group), sent
 
 
 def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
@@ -241,12 +241,12 @@ def exchange_and_reduce(words_sorted: torch.Tensor, starts: torch.Tensor, *,
     rounds = 0
     while global_left > 0 and rounds < max_rounds:
         with trace.span("shuffle.round", req=rounds):
-            shipped, live = ship_round(words_sorted, starts, rounds,
-                                       capacity, group)
+            shipped, sent_r = ship_round(words_sorted, starts, rounds,
+                                         capacity, group)
             left = (counts - (rounds + 1) * capacity).clamp(min=0).sum(
                 dim=-1, dtype=torch.int32)
             hist += reduce_words(shipped)
-            sent += live.sum(dim=(1, 2), dtype=torch.int32)
+            sent += sent_r
             deferred += left
             global_left = nodes.global_count(left, group)
         rounds += 1

@@ -24,7 +24,7 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3]
              / "build" / "repro_torch_kernels")
 SOURCES = ("count_scatter", "segment_hist", "segment_hist_packed",
            "windowed_ratio_masked", "powerlaw_sample", "windowed_ratio",
-           "combine_blocks")
+           "combine_blocks", "ship_buckets")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -211,7 +211,10 @@ class TestKernelPasses:
         assert set(SOURCES) == {"count_scatter", "segment_hist",
                                 "segment_hist_packed",
                                 "windowed_ratio_masked", "powerlaw_sample",
-                                "windowed_ratio", "combine_blocks"}
+                                "windowed_ratio", "combine_blocks",
+                                "ship_buckets"}
+        assert SOURCES["ship_buckets"].bounds[
+            "ship_buckets_kernel"] == (256, 4)
         assert SOURCES["combine_blocks"].bounds[
             "combine_blocks_kernel"] == (256, 4)
         assert SOURCES["windowed_ratio_masked"].bounds[
@@ -370,7 +373,10 @@ class TestKernelPasses:
             "windowed_ratio/most_sites",
             "windowed_ratio/masked_most_sites",
             "combine_blocks/main_path", "combine_blocks/odd_weeks",
-            "combine_blocks/off_boundary", "combine_blocks/widest_node"}
+            "combine_blocks/off_boundary", "combine_blocks/widest_node",
+            "ship_buckets/main_path", "ship_buckets/later_round",
+            "ship_buckets/odd_capacity", "ship_buckets/widest_bucket",
+            "ship_buckets/gang_rank"}
 
     def test_main_path_cases_launch_the_main_paths_shapes(self):
         cases = {c["name"]: c for c in kp.kernel_analysis_cases()}

@@ -1212,7 +1212,7 @@ def test_gang_on_the_card_equals_one_process(cuda_device, tmp_path):
     """tools/gang_check.py as a gang of 2 ranks sharing the card (gloo,
     host-staged collectives): every rank's histogram, rho bits and
     ShuffleStats equal the one-process run on the card, and each rank
-    launches K1-K3 and K6 over its own nodes."""
+    launches K1-K3 and K6 over its own nodes, and K9 once a round."""
     import os
     import pathlib
     import subprocess
@@ -1246,6 +1246,9 @@ def test_gang_on_the_card_equals_one_process(cuda_device, tmp_path):
                 np.testing.assert_array_equal(a, b, err_msg=f"{name} {field}")
         assert int(got["P4/seed_mapreduce_counting/launches_"
                        "segment_hist.packed"]) >= 2
+        for name in cases:       # K9 a round; none on streams and sphere
+            assert int(got[f"P4/{name}/launches_k9"]) == int(
+                got[f"P4/{name}/launches_segment_hist.packed"]), name
         assert int(got["P4/seed_mapreduce_counting/launches_"
                        "powerlaw_sample"]) == 2 * 2 * 2
 
@@ -1972,3 +1975,187 @@ def test_combiner_folds_through_k8_on_the_card(cuda_device, nodes_):
         assert torch.equal(got.marked.cpu(), other.marked.cpu())
         assert torch.equal(got.rho.cpu().view(torch.int32),
                            other.rho.cpu().view(torch.int32))
+
+
+# ------------------------------------- K9, the shuffle's round of words
+def _malgen_words(device, sites, rps=1 << 23, p=8):
+    """A step's words ordered by destination, over MalGen's records at
+    [p, rps] (``sites`` "skewed") or the same records with sites drawn
+    uniformly."""
+    from repro_torch.core.backends.mapreduce import order_words
+
+    cfg = MalGenConfig()
+    seed = make_seed(36, cfg, p * rps, device=device)
+    log = generate_shards_device(seed, cfg, p, rps, device=device)
+    if sites == "uniform":
+        log = log._replace(site_id=torch.randint(
+            0, cfg.num_sites, log.site_id.shape, device=device,
+            dtype=torch.int32))
+    return order_words(log, 52, "counting")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sites", ["skewed", "uniform"])
+def test_ship_buckets_equals_plain_at_the_cells_step(cuda_device, sites):
+    """K9 at the benchmark's mapreduce step (8 x 2^23 words, C = 2^22,
+    round 0, and round 1, past every segment) equals its plain version,
+    the torch path, bit for bit; one launch a call."""
+    from repro_torch.core.backends.mapreduce import static_capacity
+    from repro_torch.kernels.ship_buckets import ops as sb
+
+    words, starts = _malgen_words(cuda_device, sites)
+    capacity = static_capacity(1 << 23, 8, 4.0)
+    assert capacity == 1 << 22
+    for r in (0, 1):
+        before = sb.ship_buckets.launches
+        got = sb.ship_buckets(words, starts, r, capacity)
+        torch.cuda.synchronize(cuda_device)
+        assert sb.ship_buckets.launches == before + 1
+        want = sb.ship_buckets_plain(words, starts, r, capacity)
+        assert torch.equal(got, want), r
+        del want
+    # the segments start off 16-byte boundaries: K9 cuts its vectors
+    assert {int(x) % 4 for x in starts[:, :-1].reshape(-1).cpu()} != {0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,rank", [(2, 1), (4, 0), (4, 3)])
+def test_ship_buckets_senders_layout_is_the_receivers_transposed(
+        cuda_device, world, rank):
+    """A gang rank's K9 launch at the cell's widths (its 8 / world senders
+    of 2^23 words, C = 2^22, rounds 0 and 1) writes bucket d of each of its
+    senders at row ``s * P + d``: the one-process receivers' layout,
+    transposed, the rank's rows."""
+    from repro_torch.core.backends.mapreduce import static_capacity
+    from repro_torch.kernels.ship_buckets import ops as sb
+
+    words, starts = _malgen_words(cuda_device, "skewed")
+    capacity = static_capacity(1 << 23, 8, 4.0)
+    local = 8 // world
+    mine = slice(rank * local, (rank + 1) * local)
+    for r in (0, 1):
+        before = sb.ship_buckets.launches
+        got = sb._launch(words[mine], starts[mine], r, capacity, 8, True)
+        assert sb.ship_buckets.launches == before + 1
+        want = sb.ship_buckets(words, starts, r, capacity).view(
+            8, 8, capacity).transpose(0, 1)[mine]
+        assert torch.equal(got.view(local, 8, capacity), want), r
+        del got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,capacity,skew", [
+    (8, 1 << 20, 1 << 16, 0),       # capacity factor 0.5: every round
+    (4, 100_003, 12_501, 0),        # rows and buckets of no 4-int vectors
+    (3, 4096, 1024, 1),             # words one int past a 16-byte boundary
+    (1, 9, 2, 0),                   # one node, a tiny bucket
+])
+def test_ship_buckets_every_round_equals_plain(cuda_device, p, n, capacity,
+                                               skew):
+    """Every round until no word is left, then one more (all zeros):
+    K9 equals its plain version bit for bit, in 16-byte vectors and by
+    element, from words off a 16-byte boundary too."""
+    from repro_torch.kernels.ship_buckets import ops as sb
+
+    g = torch.Generator(device=cuda_device).manual_seed(p * n + capacity)
+    dest = torch.randint(0, p + 1, (p, n), generator=g, dtype=torch.int32,
+                         device=cuda_device)
+    dest[:, : n // 3] = 0                       # one hot destination
+    buf = torch.randint(-2**31, 2**31 - 1, (p * n + skew,), generator=g,
+                        dtype=torch.int32, device=cuda_device)
+    words, starts = count_scatter_ref(buf[skew:].view(p, n), dest, p)
+    words = (torch.empty(p * n + skew, dtype=torch.int32,
+                         device=cuda_device)[skew:].view(p, n)
+             .copy_(words))
+    assert sb.vector_ints(words.data_ptr(), 0, n, capacity) == (
+        4 if skew == 0 and n % 4 == 0 and capacity % 4 == 0 else 1)
+    rounds = -(-int((starts[:, 1:] - starts[:, :-1]).max()) // capacity)
+    assert rounds > 1
+    for r in range(rounds + 1):
+        got = sb.ship_buckets(words, starts, r, capacity)
+        assert torch.equal(got, sb.ship_buckets_plain(words, starts, r,
+                                                      capacity)), r
+    assert int(got.count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["counting", "sort"])
+def test_exchange_and_reduce_equal_on_both_paths(cuda_device, impl,
+                                                 monkeypatch):
+    """``mapreduce_histogram`` at capacity factor 0.5 (several rounds) on
+    the card: K9 once a round, counted in ``shuffle.rounds_in_kernel``;
+    the histogram and all six ShuffleStats fields equal the torch path's
+    (``ship_buckets`` replaced by its plain version) and the CPU's."""
+    from repro_torch.common import trace
+    from repro_torch.common.types import EventLog
+    from repro_torch.core.backends import mapreduce
+    from repro_torch.kernels.ship_buckets import ops as sb
+
+    cfg = MalGenConfig(num_sites=4096, num_entities=50_000)
+    p, rps = 8, 1 << 18
+    seed = make_seed(5, cfg, p * rps, device=cuda_device)
+    log = generate_shards_device(seed, cfg, p, rps, device=cuda_device)
+    kw = dict(num_sites=4096, num_weeks=52, capacity_factor=0.5, impl=impl,
+              word_histogram_fn=lambda w, s, weeks, parts, first:
+              segment_hist_packed_words(w, num_sites_local=s,
+                                        num_partitions=parts,
+                                        num_weeks=weeks, first_node=first))
+    before = sb.ship_buckets.launches
+    trace.start()
+    try:
+        hist, stats = mapreduce.mapreduce_histogram(log, **kw)
+    finally:
+        _, counters = trace.stop()
+    assert stats.rounds > 1
+    assert sb.ship_buckets.launches - before == stats.rounds
+    assert counters["shuffle.rounds_in_kernel"] == stats.rounds
+    monkeypatch.setattr(mapreduce, "ship_buckets", sb.ship_buckets_plain)
+    torch_hist, torch_stats = mapreduce.mapreduce_histogram(log, **kw)
+    monkeypatch.undo()
+    cpu_hist, cpu_stats = mapreduce.mapreduce_histogram(
+        EventLog(*(c.cpu() if c is not None else None for c in log)), **kw)
+    for h, st in ((torch_hist, torch_stats), (cpu_hist, cpu_stats)):
+        assert torch.equal(hist.cpu(), h.cpu())
+        for name in ("sent", "overflow", "residual", "bytes_exchanged"):
+            assert torch.equal(getattr(stats, name).cpu(),
+                               getattr(st, name).cpu()), name
+        assert (stats.capacity, stats.rounds) == (st.capacity, st.rounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runner_kind", ["overlap", "resumable"])
+def test_mapreduce_runners_unchanged_by_k9(cuda_device, runner_kind,
+                                           monkeypatch):
+    """The overlap runner (K9 on the fold's stream, overlap on and off)
+    and the resumable runner on mapreduce give the same histogram, rho
+    bits and ShuffleStats through K9 as through the torch path; K9
+    launches once a round."""
+    from repro_torch.core.backends import mapreduce
+    from repro_torch.kernels.ship_buckets import ops as sb
+
+    def results():
+        if runner_kind == "overlap":
+            _, _, _, runner = _overlap_case(cuda_device, "mapreduce", 6,
+                                            1 << 16)
+            return [runner.run_result("B", overlap=ov) for ov in
+                    (True, False)]
+        _, _, _, runner = _resume_case(cuda_device, "mapreduce")
+        out = runner.run()
+        return [(out.result, out.shuffle_stats)]
+
+    before = sb.ship_buckets.launches
+    reset_launch_counts()
+    got = results()
+    torch.cuda.synchronize(cuda_device)
+    launched = sb.ship_buckets.launches - before
+    # one K9 launch a round, as K3's
+    assert launched == launch_counts()["segment_hist.packed"]
+    # capacity factor 0.5: two rounds or more a step, four steps or more
+    assert launched >= 2 * 4 * len(got)
+    monkeypatch.setattr(mapreduce, "ship_buckets", sb.ship_buckets_plain)
+    want = results()
+    for (g, gs), (w, ws) in zip(got, want):
+        assert torch.equal(g.total, w.total)
+        assert torch.equal(g.marked, w.marked)
+        assert torch.equal(g.rho.view(torch.int32), w.rho.view(torch.int32))
+        assert _stats(gs) == _stats(ws)

@@ -19,8 +19,9 @@ exchange's clock (``common.nodes.ExchangeClock``) summed over them; then,
 on the card, one run profiled on rank 0 for its idle share. Rank k writes
 ``DIR/rank{k}.npz``: for every ``P{P}/{case}/`` its rho, histogram (the
 weekly differences of MalStone B's cumulative counts), every
-``ShuffleStats`` field, each kernel's launches, the timed runs' ms, the
-clock, peak device memory and rank 0's idle share.
+``ShuffleStats`` field, each kernel's launches (K9's, which
+``launch_counts()`` leaves out, as ``launches_k9``), the timed runs' ms,
+the clock, peak device memory and rank 0's idle share.
 
 ``--collectives`` also runs each collective of ``common.nodes`` over the
 rank's rows of seeded ``[P, ...]`` inputs (``P{P}/collective/``), and
@@ -57,6 +58,7 @@ from repro_torch.common.types import EventLog, ExchangePlan  # noqa: E402
 from repro_torch.core import run  # noqa: E402
 from repro_torch.core.overlap import OverlapStreamingRunner  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.ship_buckets import ops as k9  # noqa: E402
 from repro_torch.launch import coordinator, mesh  # noqa: E402
 from repro_torch.malgen import (  # noqa: E402
     MalGenConfig,
@@ -290,9 +292,11 @@ def run_rank(args, device) -> dict:
             if group.distributed:
                 torch.distributed.barrier()
             reset_launch_counts()
+            k9.ship_buckets.launches = 0
             result, stats = once()
             _sync(device)
             launches = launch_counts()
+            launches["k9"] = k9.ship_buckets.launches
             arrays = result_arrays(result, stats)
             arrays.update({f"launches_{k}": np.asarray(v)
                            for k, v in launches.items()})

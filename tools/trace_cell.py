@@ -53,6 +53,10 @@ SYNC = "host.sync."
 NO_SPAN = "(no span)"
 NO_LAUNCH = "(no launch record)"
 TOP = 10
+# kernels whose own device seconds are kept by span path, by a fragment of
+# their symbol: the shuffle round's K9 and K3
+NAMED_KERNELS = {"ship_buckets": "ship_buckets_kernel(",
+                 "packed_hist": "packed_hist_kernel("}
 
 
 # ------------------------------------------------------------ span paths
@@ -142,22 +146,29 @@ def by_span_path(host: list, device: list, launches: dict, w0: int,
     overlap, the earlier one takes the shared time. Returns
     ``idle_s_by_span_path``, ``device_s_by_span_path``,
     ``device_ops_by_span_path`` (how many device operations, kernels and
-    copies, each span path launched), ``window_s``,
+    copies, each span path launched), ``kernel_s_by_span_path`` (the
+    seconds of each of :data:`NAMED_KERNELS` by the span path that
+    launched it, overlaps not cut), ``window_s``,
     ``busy_s``, the ``TOP`` longest ``idle_gaps`` (``[path at the gap's
     middle, s]``), ``launch_matched`` (the share of device seconds whose
     launch record was found) and ``gaps``, every idle ``(start, end)``."""
     segments = span_segments(host)
     starts = [s[0] for s in segments]
-    ops = sorted((max(a, w0), min(b, w1), corr) for _, a, b, corr in device
-                 if b > w0 and a < w1)
+    ops = sorted((max(a, w0), min(b, w1), corr, name)
+                 for name, a, b, corr in device if b > w0 and a < w1)
     busy: list = []
     device_s: dict = {}
     device_ops: dict = {}
+    kernel_s: dict = {}
     cursor = w0
-    for a, b, corr in ops:
+    for a, b, corr, name in ops:
         t = launches.get(corr)
         path = NO_LAUNCH if t is None else path_at(segments, starts, t)
         device_ops[path] = device_ops.get(path, 0) + 1
+        for key, fragment in NAMED_KERNELS.items():
+            if fragment in name:
+                by = kernel_s.setdefault(path, {})
+                by[key] = by.get(key, 0.0) + (b - a) / 1e9
         lo = max(a, cursor)
         if b <= lo:
             continue
@@ -182,6 +193,7 @@ def by_span_path(host: list, device: list, launches: dict, w0: int,
         "window_s": (w1 - w0) / 1e9, "busy_s": busy_s,
         "idle_s_by_span_path": idle_s, "device_s_by_span_path": device_s,
         "device_ops_by_span_path": device_ops,
+        "kernel_s_by_span_path": kernel_s,
         "idle_gaps": [[path_at(segments, starts, (a + b) // 2),
                        (b - a) / 1e9] for a, b in top],
         "launch_matched": (1.0 - device_s.get(NO_LAUNCH, 0.0) / busy_s
@@ -355,6 +367,35 @@ def _combiner_bytes(view: dict):
             "folds": len(_named(view, "combiner.blocks"))}
 
 
+def _ship_device(view: dict):
+    paths, steps = view.get("paths"), _steps(view)
+    if not paths or not steps:
+        return None
+    rounds = [p for p in paths.get("kernel_s_by_span_path", {}).items()
+              if "shuffle.round" in p[0].split("/")]
+
+    def ms(key):
+        return 1e3 * sum(by.get(key, 0.0) for _, by in rounds) / steps
+
+    if not ms("ship_buckets"):
+        return None       # no K9 ran (a CPU run, or a program without it)
+    dev = paths["device_s_by_span_path"]
+    return {"value": ms("ship_buckets"), "k3": ms("packed_hist"),
+            "round": 1e3 * sum(v for p, v in dev.items()
+                               if "shuffle.round" in p.split("/")) / steps,
+            "rounds_per_step": len(_named(view, "shuffle.round")) / steps,
+            "steps": steps}
+
+
+def _rounds_in_kernel(view: dict):
+    taken = view["counters"].get("shuffle.rounds_in_kernel")
+    rounds = len([s for s in view["spans"] if s.name == "shuffle.round"])
+    if not taken or not rounds:
+        return None
+    return {"value": taken / rounds, "rounds_in_kernel": taken,
+            "rounds": rounds}
+
+
 # name -> (unit, reader of the view): the per-layer readings of the port's
 # spans and counters; a reader returns None where it finds nothing
 SPAN_METRICS = {
@@ -375,6 +416,10 @@ SPAN_METRICS = {
     # step, and the bytes of blocks that leave their node a record folded
     "combiner.blocks_device_ms_per_step": ("ms/step", _combiner_device),
     "combiner.block_bytes_per_record": ("bytes", _combiner_bytes),
+    # the record shuffle's round: K9's device time a step (K3's and the
+    # round's beside it), and the share of rounds whose words K9 wrote
+    "shuffle.ship_device_ms_per_step": ("ms/step", _ship_device),
+    "shuffle.rounds_in_kernel": ("share", _rounds_in_kernel),
 }
 
 
